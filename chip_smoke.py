@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/H100 port of the Groth16 prover on one card.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+
+Phases (any failure exits non-zero and prints no result):
+  1. environment: card name and power limit, CUDA and nvcc versions, and the
+     build of the four kernels from zelana_tpu_torch/csrc (one nvcc per
+     source, in parallel), with ptxas register and spill counts;
+  2. each kernel against its plain PyTorch version on the card, exact
+     equality: mont_mul (2^16 Fr and Fq, with 0, 1 and p - 1), one butterfly
+     stage (n = 2^16), runscan in its four variants on a real schedule over
+     a 2^12-point pool, pairs_add (G1, G2) at 2^14;
+  3. the slice through its entry points: prove and prove_many over the
+     L2 block circuit with artifacts/l2_dummy_pk.npz, every proof checked
+     by verify, the batch_id = 1 proof byte-equal to the vector the JAX
+     package recorded; launch counts of the four kernels on this run;
+     one more prove under torch.profiler gives the device's idle share;
+  4. the production chunk's size (1,128,532 constraints, 2^21 domain) with
+     synthetic inputs: the witness map at 2^21 against its plain version on
+     the card, and G1 / G2 MSMs at chunk size against their closed form;
+     each kernel's time at these shapes beside its bound;
+  5. one JSON line of per-kernel numbers, then the result line.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+# 32-bit integer multiply(-add) issue rate: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz boost (Hopper SM layout); the data sheet gives no int32 rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+MUL_OPS = 2 * 2 * 8 * 8 + 8  # one 8x32-bit CIOS: 128 wide products, 8 m's
+
+CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
+CHUNK_DOMAIN = 1 << 21
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "zelana_tpu_torch")):
+        print("chip_smoke: zelana_tpu_torch not found beside the script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    os.chdir(root)
+
+    from zelana_tpu_torch.ops import cuda
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+    nvcc_v = subprocess.run([cuda._nvcc(), "--version"], capture_output=True,
+                            text=True, check=True).stdout.strip()
+    log("nvcc:", nvcc_v.splitlines()[-1])
+    t0 = time.time()
+    build = cuda.build_all()
+    log(f"kernel build: {time.time() - t0:.1f} s wall "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in build.items()))
+    for name, info in build.items():
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    report = {}
+    kernels = phase_kernels(torch, dev, report)
+    launches = phase_slice(torch, dev, report)
+    phase_chunk(torch, dev, report)
+
+    out = []
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} never launched on the path")
+        out.append(k)
+    log(json.dumps({"card": card, "report": report}))
+    log(card)
+    log(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
+    """Mean device time of fn over `reps` runs, after one warm-up run."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def compare(torch, got, want):
+    """(mismatched columns, max |word difference|) of two word tensors."""
+    g = got.to(torch.int64) & 0xFFFFFFFF
+    w = want.to(torch.int64) & 0xFFFFFFFF
+    diff = (g - w).abs()
+    cols = diff.reshape(diff.shape[0], -1).amax(dim=0)
+    return int((cols != 0).sum()), int(diff.max())
+
+
+def bound_ms(nbytes: float, ops: float):
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def rand_words(torch, rng, modulus_top: int, n: int, dev):
+    """(8, n) int32 words of random canonical values (top word below the
+    modulus's top word, so every value is < p)."""
+    import numpy as np
+
+    w = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    w[7] %= modulus_top
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(torch, dev, report) -> list:
+    import numpy as np
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    rng = np.random.default_rng(2024)
+    kernels = []
+    mismatches = {}  # kernel -> mismatched columns over all its checks
+
+    def check(name, got, want):
+        mism, err = compare(torch, got, want)
+        log(f"  {name}: mismatches {mism}, max |diff| {err}")
+        kernel = name.split()[0]
+        mismatches[kernel] = mismatches.get(kernel, 0) + mism
+        return err
+
+    # mont_mul at 2^16, Fr and Fq, with 0, 1 and p - 1 among the inputs
+    n = 1 << 16
+    err = 0
+    ms = plain = 0.0
+    for spec in (L.FR, L.FQ):
+        a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+        b = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+        edge = L.to_tensor(L.to_words([0, 1, spec.modulus - 1]), dev)
+        a[:, :3] = edge
+        b[:, 3:6] = edge
+        b[:, 6:9] = edge
+        a[:, 6:9] = edge
+        err = max(err, check(f"mont_mul {'Fr' if spec is L.FR else 'Fq'}",
+                             FK.mont_mul(a, b, spec),
+                             FK.mont_mul_plain(a, b, spec)))
+        ms += cuda_ms(torch, lambda: FK.mont_mul(a, b, spec), 20)
+        plain += cuda_ms(torch, lambda: FK.mont_mul_plain(a, b, spec), 1,
+                         False)
+    bms, by = bound_ms(2 * n * 96, 2 * n * MUL_OPS)
+    kernels.append(_entry("mont_mul", "zelana_tpu_torch/csrc/field_kernels.cu",
+                          "zelana_tpu/ops/pallas_field.py:136", err, ms,
+                          plain, bms, by))
+
+    # one butterfly stage at n = 2^16 (2^15 pairs)
+    m = n // 2
+    a, b, tw = (rand_words(torch, rng, FR >> 224, m, dev) for _ in range(3))
+    ke, ko = FK.butterfly(a, b, tw, L.FR)
+    pe, po = FK.butterfly_plain(a, b, tw, L.FR)
+    err = max(check("butterfly even", ke, pe), check("butterfly odd", ko, po))
+    ms = cuda_ms(torch, lambda: FK.butterfly(a, b, tw, L.FR), 20)
+    plain = cuda_ms(torch, lambda: FK.butterfly_plain(a, b, tw, L.FR), 1,
+                    False)
+    bms, by = bound_ms(m * 160, m * MUL_OPS)
+    kernels.append(_entry("butterfly",
+                          "zelana_tpu_torch/csrc/field_kernels.cu",
+                          "zelana_tpu/ops/pallas_field.py:462", err, ms,
+                          plain, bms, by))
+
+    # runscan, four variants, on a real schedule over a 2^12-point pool;
+    # pairs_add at 2^14 on the level-1 emit's projective points
+    npool = 1 << 12
+    scalars = [int.from_bytes(rng.bytes(32), "little") % FR
+               for _ in range(npool)]
+    digits = MSM.scalar_digits(scalars)
+    rs_err = pa_err = 0
+    rs = {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+    pa = {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+    for curve, G, gen in (("g1", G1, G1.generator()),
+                          ("g2", G2, G2.generator())):
+        pts, acc = [], gen
+        for _ in range(npool):
+            pts.append(acc)
+            acc = G.add(acc, gen)
+        prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(pts, dev)
+        lanes = MSM.LANES if curve == "g1" else MSM.LANES_G2
+        d = MSM._upload(MSM.build_schedule(digits, lanes), dev)
+        pool = prep[0]
+        C = CK.rows(curve)
+        rows1, lanes1 = d["flag"].shape
+        vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1,
+                                                   lanes1)
+        emit = CK.runscan(vals, d["flag"], curve)
+        rs_err = max(rs_err, check(f"runscan {curve} affine", emit,
+                                   CK.runscan_plain(vals, d["flag"], curve)))
+        rows2, lanes2 = d["flag2"].shape
+        vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(
+            C, rows2, lanes2)
+        emit2 = CK.runscan(vals2, d["flag2"], curve, proj_in=True)
+        rs_err = max(rs_err, check(
+            f"runscan {curve} projective", emit2,
+            CK.runscan_plain(vals2, d["flag2"], curve, proj_in=True)))
+        for v, f, proj in ((vals, d["flag"], False),
+                           (vals2, d["flag2"], True)):
+            rs["ms"] += cuda_ms(torch, lambda: CK.runscan(v, f, curve, proj))
+            rs["plain"] += cuda_ms(
+                torch, lambda: CK.runscan_plain(v, f, curve, proj), 1, False)
+            adds = int((f == 0).sum())
+            per_add = {("g1", False): 11, ("g1", True): 12,
+                       ("g2", False): 39, ("g2", True): 42}[(curve, proj)]
+            rs["bytes"] += f.numel() * 4 * (v.shape[0] + 1 + C)
+            rs["ops"] += adds * per_add * MUL_OPS
+        flat = emit.view(C, -1)
+        k = 1 << 14
+        A = flat[:, :k].contiguous()
+        B = flat[:, k:2 * k].contiguous()
+        pa_err = max(pa_err, check(f"pairs_add {curve}",
+                                   CK.pairs_add(A, B, curve),
+                                   CK.pairs_add_plain(A, B, curve)))
+        pa["ms"] += cuda_ms(torch, lambda: CK.pairs_add(A, B, curve), 20)
+        pa["plain"] += cuda_ms(torch, lambda: CK.pairs_add_plain(A, B, curve),
+                               1, False)
+        pa["bytes"] += 3 * C * 4 * k
+        pa["ops"] += k * (12 if curve == "g1" else 42) * MUL_OPS
+    bms, by = bound_ms(rs["bytes"], rs["ops"])
+    kernels.append(_entry("runscan", "zelana_tpu_torch/csrc/curve_kernels.cu",
+                          "zelana_tpu/ops/pallas_curve.py:510", rs_err,
+                          rs["ms"], rs["plain"], bms, by))
+    bms, by = bound_ms(pa["bytes"], pa["ops"])
+    kernels.append(_entry("pairs_add",
+                          "zelana_tpu_torch/csrc/curve_kernels.cu",
+                          "zelana_tpu/ops/pallas_curve.py:545", pa_err,
+                          pa["ms"], pa["plain"], bms, by))
+    for k in kernels:
+        k["mismatches"] = mismatches[k["name"]]
+        log(f"  {k['name']}: {k['ms']:.4f} ms kernel, {k['plain_ms']:.3f} ms "
+            f"plain, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    if any(mismatches.values()):
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{mismatches}")
+    report["kernels_checked"] = [k["name"] for k in kernels]
+    return kernels
+
+
+def _entry(name, source, replaces, err, ms, plain, bms, by) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the slice through prove / prove_many
+# ---------------------------------------------------------------------------
+
+
+def l2_circuit():
+    from zelana_tpu_torch.circuits.l2_block import (
+        L2BlockCircuit, compute_batch_hash, compute_state_root,
+        compute_withdrawal_root)
+
+    c = L2BlockCircuit.dummy()
+    final = dict(c.initial_accounts)
+    for t in c.transactions:
+        final[t.sender_pk] -= t.amount
+        final[t.recipient_pk] = final.get(t.recipient_pk, 0) + t.amount
+    c.pre_state_root = compute_state_root(c.batch_id, c.initial_accounts)
+    c.post_state_root = compute_state_root(c.batch_id, final)
+    c.withdrawal_root = compute_withdrawal_root(c.withdrawals)
+    c.batch_hash = compute_batch_hash(c.batch_id, c.transactions)
+    return c
+
+
+def phase_slice(torch, dev, report) -> dict:
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.groth16.prove import (prove, prove_many,
+                                                public_inputs_of)
+    from zelana_tpu_torch.groth16.verify import verify
+    from zelana_tpu_torch.ops import cuda
+
+    with open("zelana_tpu_torch/testdata/l2_dummy_proof.json") as f:
+        want = json.load(f)
+    t0 = time.time()
+    pk = ProvingKey.load_npz("artifacts/l2_dummy_pk.npz")
+    circuit = l2_circuit()
+    pub = public_inputs_of(circuit)
+    log(f"L2 key loaded + circuit built: {time.time() - t0:.2f} s")
+
+    cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    first = prove(pk, circuit, batch_id=1)
+    t1 = time.time()
+    many = prove_many(pk, [(circuit, b) for b in (2, 3, 4, 5)])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = dict(cuda.LAUNCHES)
+    log(f"launches on the slice: {launches}")
+
+    proofs = [first] + many
+    for i, p in enumerate(proofs):
+        if not verify(pk.vk, p, pub):
+            raise AssertionError(f"proof {i + 1} does not verify")
+    blob = first.serialize_compressed().hex()
+    if blob != want["proof"]:
+        raise AssertionError("batch_id 1 proof differs from the recorded "
+                             "JAX vector")
+    if len({p.serialize_compressed() for p in proofs}) != len(proofs):
+        raise AssertionError("distinct batch ids gave equal proofs")
+    ms_first = (t1 - t0) * 1e3
+    ms_many = (t2 - t1) * 1e3 / len(many)
+    log(f"L2 prove (first, incl. key upload + NTT plan): {ms_first:.1f} ms")
+    log(f"L2 prove_many x{len(many)}: {ms_many:.1f} ms/proof, "
+        f"{1e3 / ms_many:.3f} proofs/s; 5 proofs verified, batch_id 1 "
+        f"byte-equal to the JAX vector")
+    report["l2"] = {"first_prove_ms": ms_first, "prove_many_ms_per_proof":
+                    ms_many, "proofs_per_s": 1e3 / ms_many,
+                    "launches": launches}
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+
+    # where one prove's time goes: device busy time from the profiler's
+    # kernel records against the host clock
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        prove(pk, circuit, batch_id=6)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"L2 prove under the profiler: {wall:.1f} ms wall, device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:70]}")
+    report["l2"].update(profiled_wall_ms=wall, device_busy_ms=busy,
+                        idle_share=1 - busy / wall)
+
+    # and the host side of one prove: the port's functions by cumulative time
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(prove, pk, circuit, batch_id=7)
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[3], f"{os.path.basename(k[0])}:{k[2]}")
+                   for k, v in stats.items() if "zelana_tpu_torch" in k[0]),
+                  reverse=True)[:14]
+    log("L2 prove, host functions by cumulative time (cProfile):")
+    for cum, name in rows:
+        log(f"  {cum * 1e3:9.1f} ms  {name}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: production chunk size, synthetic inputs
+# ---------------------------------------------------------------------------
+
+
+def phase_chunk(torch, dev, report) -> None:
+    import numpy as np
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.groth16.prove import witness_map
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    rng = np.random.default_rng(21)
+    t0 = time.time()
+    plan = NTT.make_plan(CHUNK_DOMAIN)
+    log(f"NTT plan 2^21 (host tables by running products): "
+        f"{time.time() - t0:.2f} s")
+    evals = [rand_words(torch, rng, FR >> 224, CHUNK_DOMAIN, dev)
+             for _ in range(3)]
+    h = witness_map(evals, plan)
+    torch.cuda.synchronize()
+    wm_ms = cuda_ms(torch, lambda: witness_map(evals, plan), 3)
+    t0 = time.time()
+    h_plain = witness_map(evals, plan, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    mism, _ = compare(torch, h, h_plain)
+    log(f"witness map 2^21: {wm_ms:.2f} ms on the kernels, plain version "
+        f"{plain_s:.1f} s; mismatches {mism}")
+    if mism:
+        raise AssertionError("2^21 witness map differs from its plain "
+                             "version")
+    report["witness_map_2_21_ms"] = wm_ms
+    n, m = CHUNK_DOMAIN, CHUNK_DOMAIN // 2
+    a, b = evals[0], evals[1]
+    x, y, w = (t[:, :m].contiguous() for t in evals)
+    for name, fn, nbytes, ops in (
+            ("mont_mul 2^21", lambda: FK.mont_mul(a, b, L.FR), n * 96,
+             n * MUL_OPS),
+            ("butterfly 2^20 pairs", lambda: FK.butterfly(x, y, w, L.FR),
+             m * 160, m * MUL_OPS)):
+        ms = cuda_ms(torch, fn, 20)
+        bms, by = bound_ms(nbytes, ops)
+        log(f"  {name}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        report[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+    del h, h_plain, evals, a, b, x, y, w
+
+    # MSMs at chunk size: pools tile P_j = (j+1) G, j < 4096, so the answer
+    # is (sum_i s_i * ((i mod 4096) + 1) mod r) G
+    tile = 4096
+    for curve, n in (("g1", CHUNK_CONSTRAINTS), ("g1", CHUNK_DOMAIN - 1),
+                     ("g2", CHUNK_CONSTRAINTS)):
+        G = G1 if curve == "g1" else G2
+        gen = G.generator()
+        pts, acc = [], gen
+        for _ in range(tile):
+            pts.append(acc)
+            acc = G.add(acc, gen)
+        prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(pts, dev)
+        pool = prep[0].repeat(1, -(-n // tile))[:, :n].contiguous()
+        limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+        limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
+        want = G.mul(gen, _tiled_scalar(limbs, tile) % FR)
+        t0 = time.time()
+        digits = MSM.scalar_digits(limbs)
+        segs = MSM.build_segment_schedules(
+            digits, MSM.LANES if curve == "g1" else MSM.LANES_G2)
+        MSM.upload_segment_schedules(segs, dev)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        got = MSM.msm_end(MSM.msm_begin_scheds(
+            (pool, np.zeros(n, bool), curve), segs))
+        t2 = time.time()
+        log(f"MSM {curve} n={n}: schedules {1e3 * (t1 - t0):.0f} ms (host), "
+            f"device + finish {1e3 * (t2 - t1):.1f} ms, "
+            f"{len(segs)} segments; closed form {'ok' if got == want else 'WRONG'}")
+        if got != want:
+            raise AssertionError(f"{curve} MSM at n={n} is wrong")
+        report[f"msm_{curve}_{n}_ms"] = 1e3 * (t2 - t1)
+        report[f"msm_{curve}_{n}_sched_ms"] = 1e3 * (t1 - t0)
+        if n == CHUNK_CONSTRAINTS:
+            _segment_kernels(torch, pool, segs[0], curve, report)
+        del pool, segs
+
+
+def _segment_kernels(torch, pool, seg, curve, report) -> None:
+    """Kernel times on one full 2^16-point segment of a chunk-size MSM."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    d = seg["dev"]
+    C = CK.rows(curve)
+    rows1, lanes1 = d["flag"].shape
+    vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1, lanes1)
+    emit = CK.runscan(vals, d["flag"], curve)
+    rows2, lanes2 = d["flag2"].shape
+    vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(C, rows2, lanes2)
+    per = (11, 12) if curve == "g1" else (39, 42)
+    k = MSM.SCAN_BITS * MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS // 4
+    A = emit.view(C, -1)[:, :k].contiguous()
+    B = emit.view(C, -1)[:, k:2 * k].contiguous()
+    for name, fn, nbytes, ops in (
+            (f"runscan {curve} level 1 ({rows1} x {lanes1})",
+             lambda: CK.runscan(vals, d["flag"], curve),
+             d["flag"].numel() * 4 * (vals.shape[0] + 1 + C),
+             int((d["flag"] == 0).sum()) * per[0] * MUL_OPS),
+            (f"runscan {curve} level 2 ({rows2} x {lanes2})",
+             lambda: CK.runscan(vals2, d["flag2"], curve, True),
+             d["flag2"].numel() * 4 * (2 * C + 1),
+             int((d["flag2"] == 0).sum()) * per[1] * MUL_OPS),
+            (f"pairs_add {curve} ({k})", lambda: CK.pairs_add(A, B, curve),
+             3 * C * 4 * k, k * (12 if curve == "g1" else 42) * MUL_OPS),
+            (f"segment {curve} (gathers, 2 scans, merge, tree)",
+             lambda: MSM._device_msm(pool[:, :1 << 16], d, curve), 0, 0)):
+        ms = cuda_ms(torch, fn, 3)
+        report[name] = {"ms": ms}
+        if nbytes:
+            bms, by = bound_ms(nbytes, ops)
+            report[name].update(bound_ms=bms, bound_by=by)
+        log(f"  {name}: {report[name]}")
+
+
+def _tiled_scalar(limbs, tile: int) -> int:
+    """sum_i s_i * ((i mod tile) + 1) for (n, 4) uint64 limbs, exactly:
+    per residue class, the 32-bit halves of each limb are summed in uint64
+    (at most n / tile terms below 2^32 each)."""
+    import numpy as np
+
+    n = limbs.shape[0]
+    pad = -n % tile
+    halves = np.concatenate([limbs & np.uint64(0xFFFFFFFF),
+                             limbs >> np.uint64(32)], axis=1)  # (n, 8)
+    halves = np.concatenate([halves, np.zeros((pad, 8), np.uint64)])
+    sums = halves.reshape(-1, tile, 8).sum(axis=0, dtype=np.uint64)
+    total = 0
+    for j in range(tile):
+        lo, hi = sums[j, :4], sums[j, 4:]
+        s = sum((int(lo[k]) + (int(hi[k]) << 32)) << (64 * k)
+                for k in range(4))
+        total += s * (j + 1)
+    return total
+
+
+if __name__ == "__main__":
+    sys.exit(main())

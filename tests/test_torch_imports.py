@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import zelana_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(zelana_tpu_torch.__file__)
+
+_PROVE = r"""
+import sys
+sys.path.insert(0, {root!r})
+import zelana_tpu_torch
+from zelana_tpu_torch.groth16.keys import ProvingKey
+from zelana_tpu_torch.groth16.prove import prove
+from zelana_tpu_torch.groth16.verify import verify
+from zelana_tpu_torch.r1cs.system import ConstraintSystem
+
+
+class Cubic:
+    def generate_constraints(self, cs):
+        out = cs.new_input(35)
+        x = cs.new_witness(3)
+        ((x * x) * x + x + cs.constant(5)).enforce_equal(out)
+
+
+pk = ProvingKey.load_npz({key!r})
+assert verify(pk.vk, prove(pk, Cubic(), batch_id=3, device="cpu"), [35])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or (m.startswith("zelana_tpu") and
+                 not m.startswith("zelana_tpu_torch")))
+print("FOREIGN", bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def cubic_key(tmp_path_factory):
+    from zelana_tpu.groth16.setup import keygen
+
+    class Cubic:
+        def generate_constraints(self, cs):
+            out = cs.new_input(35)
+            x = cs.new_witness(3)
+            ((x * x) * x + x + cs.constant(5)).enforce_equal(out)
+
+    path = tmp_path_factory.mktemp("keys") / "cubic_pk.npz"
+    keygen(Cubic(), seed=0).save_npz(str(path))
+    return str(path)
+
+
+def test_cpu_prove_loads_no_jax(cubic_key):
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", _PROVE.format(root=ROOT, key=cubic_key)],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|zelana_tpu)(\.|\s|$)",
+                         re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, f) for f in names if f.endswith(".py")]
+    hits = []
+    for f in files:
+        with open(f) as fh:
+            hits += [f"{f}: {m.group(0).strip()}"
+                     for m in pattern.finditer(fh.read())]
+    assert len(files) > 20 and hits == []
+
+
+def test_default_device_raises_without_cuda(cubic_key):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from zelana_tpu_torch.groth16.keys import ProvingKey, prepare_queries
+    from zelana_tpu_torch.groth16.prove import prove, prove_many
+    from zelana_tpu_torch.ops import msm_scan
+
+    pk = ProvingKey.load_npz(cubic_key)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove(pk, object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_many(pk, [(object(), 0)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_queries(pk)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        msm_scan.msm_g1([(1, 2)], [5])

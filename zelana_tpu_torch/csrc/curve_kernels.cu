@@ -1,0 +1,109 @@
+// Point kernels of the run-scan MSM: the bucket run-scan and the batched
+// complete projective add, for G1 (over Fq) and G2 (over Fq2).
+//
+// runscan replaces pallas_curve.runscan_call. The TPU kernel walks the R+1
+// stream rows as a sequential grid and carries each lane's partial bucket sum
+// in VMEM scratch between grid steps. Blocks on Hopper run in parallel and in
+// no order, so here one thread owns one lane: it loops over the rows itself
+// and keeps the carry in registers. Row r, lane l: if flags[r, l] the thread
+// emits its carry and restarts from the incoming point, else carry += point
+// (complete_add_z1 for the affine level-1 stream, complete_add for the
+// projective level-2 stream); rows without a flag emit the identity.
+//
+// pairs_add replaces pallas_curve.pairs_add_call: one thread per pair.
+//
+// What bounds them on an H100: integer multiplies. A G1 stream add is 11
+// Fq products, a G2 add 39 (Fq2 Karatsuba), ~264 multiply instructions each,
+// against 64 (G1) or 128 (G2) bytes read per add. The run-scan has only as
+// many threads as the schedule has lanes (8,192 for G1, 2,048 for G2), far
+// from filling 132 SMs with enough warps to hide latency; LANES is kept
+// because the schedule, and with it bit-parity, depends on it. Blocks of one
+// warp spread those lanes over as many SMs as possible. The G2 carry (48
+// words) plus the Fq2 temporaries exceed what the registers hold without
+// spills at this size: nvcc -Xptxas -v reports them.
+//
+// Layouts, all words-first and column-major so a warp's loads coalesce:
+//   vals  (VC, R+1, lanes) words: VC = 16 (G1) / 32 (G2) affine X|Y, or
+//         C = 24 / 48 projective X|Y|Z for the level-2 stream
+//   flags (R+1, lanes) int32, nonzero where a run begins
+//   emit  (C, R+1, lanes) words
+//   pairs (C, n) words
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libcurve_kernels.so curve_kernels.cu
+
+#include "field.cuh"
+
+template <class T, bool PROJ_IN>
+__global__ void __launch_bounds__(32)
+    runscan_kernel(const u32* __restrict__ vals, const int* __restrict__ flags,
+                   u32* __restrict__ emit, int rows, int lanes) {
+    int l = blockIdx.x * blockDim.x + threadIdx.x;
+    if (l >= lanes) return;
+    const long ld = (long)rows * lanes;  // stride between word rows
+    const Proj<T> ident = identity<T>();
+    Proj<T> carry = ident;
+    constexpr int K = Coord<T>::ROWS;
+    for (int r = 0; r < rows; ++r) {
+        const long i = (long)r * lanes + l;
+        const bool f = flags[i] != 0;
+        store_proj(emit, ld, i, f ? carry : ident);
+        if (PROJ_IN) {
+            Proj<T> q = load_proj<T>(vals, ld, i);
+            carry = f ? q : complete_add(carry, q);
+        } else {
+            T x = Coord<T>::load(vals, ld, i);
+            T y = Coord<T>::load(vals + K * ld, ld, i);
+            if (f)
+                carry = Proj<T>{x, y, Coord<T>::one()};
+            else
+                carry = complete_add_z1(carry, x, y);
+        }
+    }
+}
+
+template <class T>
+__global__ void __launch_bounds__(128)
+    pairs_add_kernel(const u32* __restrict__ a, const u32* __restrict__ b,
+                     u32* __restrict__ out, long n) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    store_proj(out, n, i,
+               complete_add(load_proj<T>(a, n, i), load_proj<T>(b, n, i)));
+}
+
+// curve: 0 = G1, 1 = G2. proj_in: 1 for the projective level-2 stream.
+extern "C" int zt_runscan(int curve, int proj_in, const void* vals,
+                          const void* flags, void* emit, int rows, int lanes,
+                          void* stream) {
+    if (rows <= 0 || lanes <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    unsigned blocks = (unsigned)((lanes + 31) / 32);
+    const u32* v = (const u32*)vals;
+    const int* f = (const int*)flags;
+    u32* e = (u32*)emit;
+    if (curve == 0 && !proj_in)
+        runscan_kernel<Fq, false><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+    else if (curve == 0)
+        runscan_kernel<Fq, true><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+    else if (!proj_in)
+        runscan_kernel<Fq2, false><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+    else
+        runscan_kernel<Fq2, true><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+    return (int)cudaGetLastError();
+}
+
+// a, b, out: (C, n) projective words.
+extern "C" int zt_pairs_add(int curve, const void* a, const void* b,
+                            void* out, long n, void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    unsigned blocks = (unsigned)((n + 127) / 128);
+    if (curve == 0)
+        pairs_add_kernel<Fq><<<blocks, 128, 0, s>>>(
+            (const u32*)a, (const u32*)b, (u32*)out, n);
+    else
+        pairs_add_kernel<Fq2><<<blocks, 128, 0, s>>>(
+            (const u32*)a, (const u32*)b, (u32*)out, n);
+    return (int)cudaGetLastError();
+}

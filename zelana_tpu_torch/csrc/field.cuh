@@ -1,0 +1,319 @@
+// Shared device arithmetic of the port's kernels: BN254 Fq and Fr in
+// Montgomery form (R = 2^256) as 8 little-endian 32-bit words, the Fq2 tower
+// and the complete projective additions of G1 and G2.
+//
+// Replaces the TPU kernels' shared helpers: pallas_field._sos_mul_fn (an
+// 8-bit f32 column-SOS, a TPU workaround for the missing widening multiply)
+// and _mod_add_sub, and pallas_curve._KernelFq / _KernelFq2 with
+// complete_add / complete_add_z1. Here the multiply is an 8x32-bit CIOS on
+// 64-bit products with one conditional subtract. The Montgomery product mod p
+// is unique and both sides reduce to [0, p), so every output is bit-equal to
+// the JAX package's; the curve formulas are transcribed term for term, so
+// the projective representatives are equal too.
+//
+// The numbers below are checked against the Python constants by
+// tests/test_torch_field.py::test_cuda_constants_match.
+
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+typedef uint32_t u32;
+typedef uint64_t u64;
+
+// field index: 0 = Fq (base field), 1 = Fr (scalar field)
+__constant__ u32 kP[2][8] = {
+    {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+};
+// -p^-1 mod 2^32
+__constant__ u32 kN0[2] = {0xe4866389u, 0xefffffffu};
+// 2^256 mod q: one in Montgomery form over Fq
+__constant__ u32 kOneQ[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
+                             0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
+                             0x9a07df2fu, 0x0e0a77c1u};
+// 3b' of the G2 twist, b' = 3 / (9 + u), Montgomery form (c0, c1)
+__constant__ u32 kB3G2[2][8] = {
+    {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+     0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
+    {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+     0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au},
+};
+
+template <int F>
+struct Fp {
+    u32 w[8];
+};
+typedef Fp<0> Fq;
+typedef Fp<1> Fr;
+
+struct Fq2 {
+    Fq c0, c1;
+};
+
+// r = a - b over 256 bits; returns the borrow out
+__device__ __forceinline__ u32 sub256(u32* r, const u32* a, const u32* b) {
+    u64 borrow = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        u64 d = (u64)a[j] - b[j] - borrow;
+        r[j] = (u32)d;
+        borrow = d >> 63;
+    }
+    return (u32)borrow;
+}
+
+// r = a + b over 256 bits; returns the carry out
+__device__ __forceinline__ u32 add256(u32* r, const u32* a, const u32* b) {
+    u64 carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        u64 s = (u64)a[j] + b[j] + carry;
+        r[j] = (u32)s;
+        carry = s >> 32;
+    }
+    return (u32)carry;
+}
+
+template <int F>
+__device__ __forceinline__ Fp<F> add(const Fp<F>& a, const Fp<F>& b) {
+    Fp<F> s, d;
+    u32 c = add256(s.w, a.w, b.w);
+    u32 bo = sub256(d.w, s.w, kP[F]);
+    return (c || !bo) ? d : s;
+}
+
+template <int F>
+__device__ __forceinline__ Fp<F> sub(const Fp<F>& a, const Fp<F>& b) {
+    Fp<F> d, c;
+    u32 bo = sub256(d.w, a.w, b.w);
+    add256(c.w, d.w, kP[F]);
+    return bo ? c : d;
+}
+
+// CIOS Montgomery product a * b * 2^-256 mod p, canonical (< p)
+template <int F>
+__device__ __forceinline__ Fp<F> mul(const Fp<F>& a, const Fp<F>& b) {
+    u32 t[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) t[j] = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        u64 c = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            c += (u64)t[j] + (u64)a.w[j] * b.w[i];
+            t[j] = (u32)c;
+            c >>= 32;
+        }
+        c += t[8];
+        t[8] = (u32)c;
+        t[9] = (u32)(c >> 32);
+        u32 m = t[0] * kN0[F];
+        c = ((u64)t[0] + (u64)m * kP[F][0]) >> 32;
+#pragma unroll
+        for (int j = 1; j < 8; ++j) {
+            c += (u64)t[j] + (u64)m * kP[F][j];
+            t[j - 1] = (u32)c;
+            c >>= 32;
+        }
+        c += t[8];
+        t[7] = (u32)c;
+        t[8] = t[9] + (u32)(c >> 32);
+    }
+    Fp<F> r, d;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = t[j];
+    u32 bo = sub256(d.w, r.w, kP[F]);
+    return (t[8] || !bo) ? d : r;
+}
+
+// G1: 3b = 9, as 8x + x (the JAX kernel's doubling chain)
+__device__ __forceinline__ Fq mul_b3(const Fq& x) {
+    Fq t = add(x, x);
+    t = add(t, t);
+    t = add(t, t);
+    return add(t, x);
+}
+
+__device__ __forceinline__ Fq2 add(const Fq2& a, const Fq2& b) {
+    return {add(a.c0, b.c0), add(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fq2 sub(const Fq2& a, const Fq2& b) {
+    return {sub(a.c0, b.c0), sub(a.c1, b.c1)};
+}
+
+// Karatsuba over Fq[u] / (u^2 + 1): 3 Fq products
+__device__ __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b) {
+    Fq t0 = mul(a.c0, b.c0);
+    Fq t1 = mul(a.c1, b.c1);
+    Fq s = mul(add(a.c0, a.c1), add(b.c0, b.c1));
+    return {sub(t0, t1), sub(sub(s, t0), t1)};
+}
+
+__device__ __forceinline__ Fq2 mul_b3(const Fq2& x) {
+    Fq2 b3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        b3.c0.w[j] = kB3G2[0][j];
+        b3.c1.w[j] = kB3G2[1][j];
+    }
+    return mul(x, b3);
+}
+
+template <class T>
+struct Proj {
+    T X, Y, Z;
+};
+
+// Renes-Costello-Batina 2015 Algorithm 7 (a = 0), pallas_curve.complete_add
+template <class T>
+__device__ __forceinline__ Proj<T> complete_add(const Proj<T>& P,
+                                                const Proj<T>& Q) {
+    T t0 = mul(P.X, Q.X);
+    T t1 = mul(P.Y, Q.Y);
+    T t2 = mul(P.Z, Q.Z);
+    T t3 = add(P.X, P.Y);
+    T t4 = add(Q.X, Q.Y);
+    t3 = mul(t3, t4);
+    t4 = add(t0, t1);
+    t3 = sub(t3, t4);
+    t4 = add(P.Y, P.Z);
+    T X3 = add(Q.Y, Q.Z);
+    t4 = mul(t4, X3);
+    X3 = add(t1, t2);
+    t4 = sub(t4, X3);
+    X3 = add(P.X, P.Z);
+    T Y3 = add(Q.X, Q.Z);
+    X3 = mul(X3, Y3);
+    Y3 = add(t0, t2);
+    Y3 = sub(X3, Y3);
+    X3 = add(t0, t0);
+    t0 = add(X3, t0);
+    t2 = mul_b3(t2);
+    T Z3 = add(t1, t2);
+    t1 = sub(t1, t2);
+    Y3 = mul_b3(Y3);
+    X3 = mul(t4, Y3);
+    t2 = mul(t3, t1);
+    X3 = sub(t2, X3);
+    Y3 = mul(Y3, t0);
+    t1 = mul(t1, Z3);
+    Y3 = add(t1, Y3);
+    t0 = mul(t0, t3);
+    Z3 = mul(Z3, t4);
+    Z3 = add(Z3, t0);
+    return {X3, Y3, Z3};
+}
+
+// Algorithm 7 with Z2 = 1 (Q affine), pallas_curve.complete_add_z1
+template <class T>
+__device__ __forceinline__ Proj<T> complete_add_z1(const Proj<T>& P,
+                                                   const T& X2, const T& Y2) {
+    T t0 = mul(P.X, X2);
+    T t1 = mul(P.Y, Y2);
+    T t3 = sub(mul(add(P.X, P.Y), add(X2, Y2)), add(t0, t1));
+    T t4 = add(mul(Y2, P.Z), P.Y);
+    T Y3 = add(mul(X2, P.Z), P.X);
+    t0 = add(add(t0, t0), t0);
+    T t2 = mul_b3(P.Z);
+    T Z3 = add(t1, t2);
+    t1 = sub(t1, t2);
+    Y3 = mul_b3(Y3);
+    T X3 = sub(mul(t3, t1), mul(t4, Y3));
+    Y3 = add(mul(Y3, t0), mul(t1, Z3));
+    Z3 = add(mul(Z3, t4), mul(t0, t3));
+    return {X3, Y3, Z3};
+}
+
+// ---------------------------------------------------------------------------
+// column-major loads and stores: word row c of element i at base[c * ld + i]
+// ---------------------------------------------------------------------------
+
+template <int F>
+__device__ __forceinline__ Fp<F> load(const u32* base, long ld, long i) {
+    Fp<F> r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = base[j * ld + i];
+    return r;
+}
+
+template <int F>
+__device__ __forceinline__ void store(u32* base, long ld, long i,
+                                      const Fp<F>& v) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) base[j * ld + i] = v.w[j];
+}
+
+// one coordinate: 8 word rows (G1) or 16 (G2: c0 then c1)
+template <class T>
+struct Coord;
+
+template <>
+struct Coord<Fq> {
+    static constexpr int ROWS = 8;
+    static __device__ __forceinline__ Fq load(const u32* b, long ld, long i) {
+        return ::load<0>(b, ld, i);
+    }
+    static __device__ __forceinline__ void store(u32* b, long ld, long i,
+                                                 const Fq& v) {
+        ::store<0>(b, ld, i, v);
+    }
+    static __device__ __forceinline__ Fq zero() {
+        Fq r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) r.w[j] = 0;
+        return r;
+    }
+    static __device__ __forceinline__ Fq one() {
+        Fq r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) r.w[j] = kOneQ[j];
+        return r;
+    }
+};
+
+template <>
+struct Coord<Fq2> {
+    static constexpr int ROWS = 16;
+    static __device__ __forceinline__ Fq2 load(const u32* b, long ld,
+                                               long i) {
+        return {::load<0>(b, ld, i), ::load<0>(b + 8 * ld, ld, i)};
+    }
+    static __device__ __forceinline__ void store(u32* b, long ld, long i,
+                                                 const Fq2& v) {
+        ::store<0>(b, ld, i, v.c0);
+        ::store<0>(b + 8 * ld, ld, i, v.c1);
+    }
+    static __device__ __forceinline__ Fq2 zero() {
+        return {Coord<Fq>::zero(), Coord<Fq>::zero()};
+    }
+    static __device__ __forceinline__ Fq2 one() {
+        return {Coord<Fq>::one(), Coord<Fq>::zero()};
+    }
+};
+
+template <class T>
+__device__ __forceinline__ Proj<T> load_proj(const u32* b, long ld, long i) {
+    constexpr int K = Coord<T>::ROWS;
+    return {Coord<T>::load(b, ld, i), Coord<T>::load(b + K * ld, ld, i),
+            Coord<T>::load(b + 2 * K * ld, ld, i)};
+}
+
+template <class T>
+__device__ __forceinline__ void store_proj(u32* b, long ld, long i,
+                                           const Proj<T>& p) {
+    constexpr int K = Coord<T>::ROWS;
+    Coord<T>::store(b, ld, i, p.X);
+    Coord<T>::store(b + K * ld, ld, i, p.Y);
+    Coord<T>::store(b + 2 * K * ld, ld, i, p.Z);
+}
+
+// the identity (0 : 1 : 0)
+template <class T>
+__device__ __forceinline__ Proj<T> identity() {
+    return {Coord<T>::zero(), Coord<T>::one(), Coord<T>::zero()};
+}

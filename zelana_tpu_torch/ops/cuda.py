@@ -1,0 +1,141 @@
+"""Build, load and count the port's CUDA kernels.
+
+Every kernel source in ``zelana_tpu_torch/csrc/*.cu`` compiles with nvcc for
+``sm_90a`` into its own shared library with a plain C interface, loaded with
+ctypes. The build runs at first use, one nvcc process per source, all started
+together, into ``build/zelana_tpu_torch/`` at the repo root; a library newer
+than every source is reused. Nothing here runs when a module is imported:
+the CPU tests import every module on machines with no nvcc.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made; a wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(PKG)  # the repo checkout
+CSRC = os.path.join(PKG, "csrc")
+BUILD = os.path.join(ROOT, "build", "zelana_tpu_torch")
+SOURCES = ("field_kernels", "curve_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "pairs_add": 0}
+BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = shutil.which("nvcc") or (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
+    if not cand or not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return cand
+
+
+def _stale(lib: str) -> bool:
+    if not os.path.exists(lib):
+        return True
+    newest = max(os.path.getmtime(f) for f in
+                 glob.glob(os.path.join(CSRC, "*.cu*")))
+    return os.path.getmtime(lib) < newest
+
+
+def build_all() -> dict:
+    """Build every stale kernel library in parallel; returns BUILD_LOG."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        lib = os.path.join(BUILD, f"lib{name}.so")
+        if not _stale(lib):
+            continue
+        tmp = f"{lib}.tmp{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib, time.time())
+    failed = []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.time() - t0, "ptxas": out}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return BUILD_LOG
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    with _LOCK:
+        if name not in _LIBS:
+            build_all()
+            cdll = ctypes.CDLL(os.path.join(BUILD, f"lib{name}.so"))
+            _declare(cdll)
+            _LIBS[name] = cdll
+        return _LIBS[name]
+
+
+def _declare(cdll) -> None:
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    sigs = {
+        "zt_mont_mul": [i, p, p, p, l, p],
+        "zt_butterfly": [i, p, p, p, p, p, l, p],
+        "zt_runscan": [i, i, p, p, p, i, i, p],
+        "zt_pairs_add": [i, p, p, p, l, p],
+    }
+    for fn, args in sigs.items():
+        if hasattr(cdll, fn):
+            getattr(cdll, fn).argtypes = args
+            getattr(cdll, fn).restype = ctypes.c_int
+
+
+def check(tensors, shapes, what: str) -> torch.device:
+    """Raise unless every tensor is a contiguous int32 CUDA tensor of the
+    given shape on one device; returns that device."""
+    dev = tensors[0].device
+    for t, shape in zip(tensors, shapes):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{what}: all operands must be on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+    return dev
+
+
+def launch(name: str, fn: str, *args, device: torch.device) -> None:
+    """Call launcher `fn` of library `name` on `device`'s current stream;
+    raise on a non-zero cudaGetLastError()."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib(name), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}")

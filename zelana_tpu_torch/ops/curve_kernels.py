@@ -1,0 +1,251 @@
+"""Point kernels of the run-scan MSM, each beside its plain version.
+
+- ``runscan(vals, flags, curve, proj_in)``: the bucket run-scan. CUDA kernel
+  ``csrc/curve_kernels.cu: runscan_kernel`` (four variants: G1/G2 x
+  affine/projective stream); replaces the TPU kernel
+  ``pallas_curve.runscan_call``.
+- ``pairs_add(a, b, curve)``: batched complete projective A + B. CUDA
+  kernel ``pairs_add_kernel``; replaces ``pallas_curve.pairs_add_call``.
+
+Points are words-first packed columns: G1 coordinates are 8 word rows each
+(X | Y | Z, C = 24 rows projective, 16 affine), G2 coordinates 16 (c0 then
+c1; C = 48 projective, 32 affine). The identity is (0 : one : 0).
+
+The plain versions run the same complete-addition formulas (Renes,
+Costello and Batina 2015, Algorithm 7 with a = 0) over the int64 limb
+arithmetic of ops/limbs.py; a wrapper takes them only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..fields import tower as tw
+from . import cuda
+from . import limbs as L
+
+
+def rows(curve: str, proj: bool = True) -> int:
+    """Word rows of one point: C (projective) or VC (affine)."""
+    return (24 if proj else 16) if curve == "g1" else (48 if proj else 32)
+
+
+def ident_words(curve: str) -> np.ndarray:
+    """(C,) uint32 words of the identity (0 : one : 0)."""
+    C = rows(curve)
+    out = np.zeros(C, np.uint32)
+    out[C // 3:C // 3 + L.NWORDS] = L.encode_mont([1], L.FQ)[:, 0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the complete additions, generic over a field vtable
+# ---------------------------------------------------------------------------
+
+
+def complete_add(F, P, Q):
+    """Renes-Costello-Batina Algorithm 7 (a = 0); P, Q projective."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    t0 = F.mul(X1, X2)
+    t1 = F.mul(Y1, Y2)
+    t2 = F.mul(Z1, Z2)
+    t3 = F.add(X1, Y1)
+    t4 = F.add(X2, Y2)
+    t3 = F.mul(t3, t4)
+    t4 = F.add(t0, t1)
+    t3 = F.sub(t3, t4)
+    t4 = F.add(Y1, Z1)
+    X3 = F.add(Y2, Z2)
+    t4 = F.mul(t4, X3)
+    X3 = F.add(t1, t2)
+    t4 = F.sub(t4, X3)
+    X3 = F.add(X1, Z1)
+    Y3 = F.add(X2, Z2)
+    X3 = F.mul(X3, Y3)
+    Y3 = F.add(t0, t2)
+    Y3 = F.sub(X3, Y3)
+    X3 = F.add(t0, t0)
+    t0 = F.add(X3, t0)
+    t2 = F.mul_b3(t2)
+    Z3 = F.add(t1, t2)
+    t1 = F.sub(t1, t2)
+    Y3 = F.mul_b3(Y3)
+    X3 = F.mul(t4, Y3)
+    t2 = F.mul(t3, t1)
+    X3 = F.sub(t2, X3)
+    Y3 = F.mul(Y3, t0)
+    t1 = F.mul(t1, Z3)
+    Y3 = F.add(t1, Y3)
+    t0 = F.mul(t0, t3)
+    Z3 = F.mul(Z3, t4)
+    Z3 = F.add(Z3, t0)
+    return X3, Y3, Z3
+
+
+def complete_add_z1(F, P, Q):
+    """Algorithm 7 with Z2 = 1: P projective, Q = (X2, Y2) affine."""
+    X1, Y1, Z1 = P
+    X2, Y2 = Q
+    t0 = F.mul(X1, X2)
+    t1 = F.mul(Y1, Y2)
+    t3 = F.sub(F.mul(F.add(X1, Y1), F.add(X2, Y2)), F.add(t0, t1))
+    t4 = F.add(F.mul(Y2, Z1), Y1)
+    Y3 = F.add(F.mul(X2, Z1), X1)
+    t0 = F.add(F.add(t0, t0), t0)
+    t2 = F.mul_b3(Z1)
+    Z3 = F.add(t1, t2)
+    t1 = F.sub(t1, t2)
+    Y3 = F.mul_b3(Y3)
+    X3 = F.sub(F.mul(t3, t1), F.mul(t4, Y3))
+    Y3 = F.add(F.mul(Y3, t0), F.mul(t1, Z3))
+    Z3 = F.add(F.mul(Z3, t4), F.mul(t0, t3))
+    return X3, Y3, Z3
+
+
+class PlainFq:
+    """Fq over (16, *B) int64 limbs."""
+
+    mul = staticmethod(lambda a, b: L.mul_l(a, b, L.FQ))
+    add = staticmethod(lambda a, b: L.add_l(a, b, L.FQ))
+    sub = staticmethod(lambda a, b: L.sub_l(a, b, L.FQ))
+
+    @staticmethod
+    def mul_b3(x):
+        # b = 3 for G1: 3b = 9 = 8x + x
+        t = L.add_l(x, x, L.FQ)
+        t = L.add_l(t, t, L.FQ)
+        t = L.add_l(t, t, L.FQ)
+        return L.add_l(t, x, L.FQ)
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_g2_limbs(device: torch.device) -> tuple:
+    """3b' of the G2 twist, b' = 3 / (9 + u), as Montgomery limb columns."""
+    inv = tw.fq2_inv((9, 1))
+    words = L.encode_mont([9 * inv[0] % L.FQ.modulus,
+                           9 * inv[1] % L.FQ.modulus], L.FQ)
+    limbs = L.unpack(L.to_tensor(words, device))
+    return limbs[:, 0:1], limbs[:, 1:2]
+
+
+class PlainFq2:
+    """Fq2 = Fq[u] / (u^2 + 1) over pairs of (16, *B) int64 limbs."""
+
+    @staticmethod
+    def mul(a, b):
+        t0 = L.mul_l(a[0], b[0], L.FQ)
+        t1 = L.mul_l(a[1], b[1], L.FQ)
+        s = L.mul_l(L.add_l(a[0], a[1], L.FQ), L.add_l(b[0], b[1], L.FQ),
+                    L.FQ)
+        return (L.sub_l(t0, t1, L.FQ),
+                L.sub_l(L.sub_l(s, t0, L.FQ), t1, L.FQ))
+
+    add = staticmethod(lambda a, b: (L.add_l(a[0], b[0], L.FQ),
+                                     L.add_l(a[1], b[1], L.FQ)))
+    sub = staticmethod(lambda a, b: (L.sub_l(a[0], b[0], L.FQ),
+                                     L.sub_l(a[1], b[1], L.FQ)))
+
+    @staticmethod
+    def mul_b3(x):
+        c0, c1 = _b3_g2_limbs(x[0].device)
+        shape = x[0].shape
+        return PlainFq2.mul(x, (c0.expand(shape), c1.expand(shape)))
+
+
+def _field(curve: str):
+    return PlainFq if curve == "g1" else PlainFq2
+
+
+def _split(limbs: torch.Tensor, curve: str) -> tuple:
+    """(16k, *B) limbs -> k/1 Fq coordinates (G1) or k/2 Fq2 pairs (G2)."""
+    parts = [limbs[16 * i:16 * (i + 1)] for i in range(limbs.shape[0] // 16)]
+    if curve == "g1":
+        return tuple(parts)
+    return tuple((parts[2 * i], parts[2 * i + 1])
+                 for i in range(len(parts) // 2))
+
+
+def _join(coords, curve: str) -> torch.Tensor:
+    flat = coords if curve == "g1" else [c for pair in coords for c in pair]
+    return torch.cat(list(flat), dim=0)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def runscan_plain(vals: torch.Tensor, flags: torch.Tensor, curve: str,
+                  proj_in: bool = False) -> torch.Tensor:
+    """vals (VC, R+1, lanes) words, flags (R+1, lanes) -> emit (C, R+1,
+    lanes): row r holds each lane's finished run total where flags[r] is
+    set, else the identity; a flag restarts the carry from the point."""
+    F = _field(curve)
+    C = rows(curve)
+    nrows, lanes = flags.shape
+    ident = L.unpack(L.to_tensor(ident_words(curve).reshape(C, 1),
+                                 vals.device)).expand(2 * C, lanes)
+    one = ident[16:32] if curve == "g1" else ident[32:48]
+    zero = torch.zeros_like(one)
+    carry = ident
+    emit = torch.empty((C, nrows, lanes), dtype=torch.int32,
+                       device=vals.device)
+    for r in range(nrows):
+        f = (flags[r] != 0)[None]
+        emit[:, r] = L.pack(torch.where(f, carry, ident))
+        P = _split(carry, curve)
+        Q = _split(L.unpack(vals[:, r]), curve)
+        if proj_in:
+            S = complete_add(F, P, Q)
+        else:
+            S = complete_add_z1(F, P, Q)
+            Q = Q + ((one,) if curve == "g1" else ((one, zero),))  # Z = 1
+        carry = torch.where(f, _join(Q, curve), _join(S, curve))
+    return emit
+
+
+def pairs_add_plain(a: torch.Tensor, b: torch.Tensor,
+                    curve: str) -> torch.Tensor:
+    P = _split(L.unpack(a), curve)
+    Q = _split(L.unpack(b), curve)
+    return L.pack(_join(complete_add(_field(curve), P, Q), curve))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def runscan(vals: torch.Tensor, flags: torch.Tensor, curve: str,
+            proj_in: bool = False) -> torch.Tensor:
+    """The bucket run-scan; see runscan_plain for the contract."""
+    if vals.device.type == "cpu" and flags.device.type == "cpu":
+        return runscan_plain(vals, flags, curve, proj_in)
+    nrows, lanes = flags.shape
+    VC = rows(curve, proj_in)
+    dev = cuda.check([vals, flags], [(VC, nrows, lanes), (nrows, lanes)],
+                     "runscan")
+    emit = torch.empty((rows(curve), nrows, lanes), dtype=torch.int32,
+                       device=dev)
+    cuda.launch("curve_kernels", "zt_runscan", 0 if curve == "g1" else 1,
+                int(proj_in), vals.data_ptr(), flags.data_ptr(),
+                emit.data_ptr(), nrows, lanes, device=dev)
+    cuda.LAUNCHES["runscan"] += 1
+    return emit
+
+
+def pairs_add(a: torch.Tensor, b: torch.Tensor, curve: str) -> torch.Tensor:
+    """Complete projective A + B over (C, n) word columns."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return pairs_add_plain(a, b, curve)
+    n = a.shape[1]
+    dev = cuda.check([a, b], [(rows(curve), n)] * 2, "pairs_add")
+    out = torch.empty_like(a)
+    cuda.launch("curve_kernels", "zt_pairs_add", 0 if curve == "g1" else 1,
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), n, device=dev)
+    cuda.LAUNCHES["pairs_add"] += 1
+    return out

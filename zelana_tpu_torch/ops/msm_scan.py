@@ -1,0 +1,406 @@
+"""Run-scan Pippenger MSM: host schedule, device bucket accumulation.
+
+1. Host: the scalars split into 32 windows of 8-bit digits; the native
+   scheduler (csrc/scan_sched.cpp) stably sorts the (window, digit) stream
+   and lays it out column-major over lanes x R rows, with a flag where each
+   (window, digit) run begins. Zero digits stay in the stream; their buckets
+   are never read.
+2. Device: gather the affine points into stream order, run-scan them
+   (curve_kernels.runscan): each lane emits its finished partial bucket sums.
+3. The per-lane partials of each bucket form a second key-sorted stream,
+   reduced by a projective run-scan (the level-2 scan); K layers of what is
+   left merge into the dense (32 windows x 256 digits) bucket layout by K-1
+   complete adds (curve_kernels.pairs_add).
+4. sum_d d * S_d splits by digit bits into 8 x 32 bit-subset sums: a fixed
+   gather and a 7-level pairwise tree of pairs_add.
+5. Host: bit and window Horner in Jacobian big ints, one inversion
+   (_finish_host).
+
+MSMs above CHUNK_N points run as segments of at most CHUNK_N (the schedule's
+point ids are 16-bit), with at most MAX_INFLIGHT segments queued before the
+oldest one is fetched; segment results add up on the host.
+
+Identity points are stored in the pools as the generator, so the schedule
+depends on the scalars only and one schedule set serves every pool with the
+same scalars (the Groth16 a, b1 and l queries); the result is corrected by
+one host scalar multiply (_inf_correction).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..curves import g1 as G1, g2 as G2
+from ..device import resolve
+from ..fields.bn254 import P as _P, R as _FR
+from ..fields import tower as tw
+from . import curve_kernels as CK
+from . import limbs as L
+from . import sched_native
+
+LANES = 8192  # level-1 stream lanes (G1)
+LANES_G2 = 2048
+SCAN_BITS = 8
+SCAN_WINDOWS = 32  # ceil(254 / 8)
+SCAN_BUCKETS = 1 << SCAN_BITS
+CHUNK_N = 1 << 16  # points per segment: ids are 16-bit
+MAX_INFLIGHT = 4  # segments queued on the device at once
+
+
+def scalar_digits(scalars, inf_mask=None) -> np.ndarray:
+    """(SCAN_WINDOWS, N) int32 window digits; infinity points get all-zero
+    digits. `scalars`: list of ints, or an (N, 4) uint64 little-endian limb
+    array."""
+    if isinstance(scalars, np.ndarray):
+        limbs = np.ascontiguousarray(scalars, dtype=np.uint64)
+        n = len(limbs)
+    else:
+        n = len(scalars)
+        buf = b"".join(int(s).to_bytes(32, "little") for s in scalars)
+        limbs = np.frombuffer(buf, dtype="<u8").reshape(n, 4)
+    digits = np.empty((SCAN_WINDOWS, n), np.int32)
+    mask = np.uint64(SCAN_BUCKETS - 1)
+    for w in range(SCAN_WINDOWS):
+        bit = w * SCAN_BITS
+        idx, sh = bit // 64, np.uint64(bit % 64)
+        digits[w] = ((limbs[:, idx] >> sh) & mask).astype(np.int32)
+    if inf_mask is not None:
+        digits[:, inf_mask] = 0
+    return digits
+
+
+def _round_pow2(x: int, lo: int = 1) -> int:
+    return max(lo, 1 << (x - 1).bit_length())
+
+
+# ---------------------------------------------------------------------------
+# host schedule
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Schedule:
+    pid: np.ndarray  # (R+1, lanes) int32 point ids, row R the flush row
+    flag: np.ndarray  # (R+1, lanes) int32, 1 where a run begins
+    pos2: np.ndarray  # (R2+1, lanes2) int32 positions into the level-1 emit
+    flag2: np.ndarray  # (R2+1, lanes2) int32
+    dense_idx: np.ndarray  # (K, W * 256) int32 positions into the level-2
+    # emit; position 0 (row 0 of lane 0) always holds the identity
+
+
+def build_schedule(digits: np.ndarray, lanes: int = LANES) -> Schedule:
+    """Two-level schedule of one segment; digits: (W, n) int32, n <= 2^16."""
+    w, n = digits.shape
+    assert n <= 1 << 16, "schedule point ids are 16-bit: segment the MSM"
+    nw = w * n
+    lanes0 = min(lanes, _round_pow2(max(nw // 8, 128), 128))
+    R0 = -(-nw // lanes0)
+    bound = w * SCAN_BUCKETS + lanes0
+    lanes2 = min(1024, _round_pow2(max(bound // 8, 128), 128))
+    perm, flag_bits, pos2, dense = sched_native.build_schedule_arrays2(
+        digits, SCAN_BUCKETS, lanes0, R0, lanes2)
+    flag = np.unpackbits(flag_bits.view(np.uint8), axis=1,
+                         bitorder="little").astype(np.int32)
+    return Schedule(
+        pid=perm.astype(np.int32), flag=flag,
+        pos2=pos2 & 0x7FFFFFFF,
+        flag2=(pos2.view(np.uint32) >> 31).astype(np.int32),
+        dense_idx=dense)
+
+
+def _upload(s: Schedule, device) -> dict:
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {"pid": t(s.pid.reshape(-1)), "flag": t(s.flag),
+            "pos2": t(s.pos2.reshape(-1)), "flag2": t(s.flag2),
+            "dense": t(s.dense_idx.reshape(-1))}
+
+
+@functools.lru_cache(maxsize=None)
+def _subset_idx(device: torch.device) -> torch.Tensor:
+    """Fixed gather of the bit-subset groups: (8 bits x 32 windows x 128
+    digits with the bit set) from the dense (32 * 256) bucket layout; group
+    order t * 32 + w matches _finish_host."""
+    idx = np.zeros((SCAN_BITS, SCAN_WINDOWS, SCAN_BUCKETS // 2), np.int32)
+    for t in range(SCAN_BITS):
+        ds = np.flatnonzero((np.arange(SCAN_BUCKETS) >> t) & 1)
+        for wi in range(SCAN_WINDOWS):
+            idx[t, wi] = wi * SCAN_BUCKETS + ds
+    return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# device program
+# ---------------------------------------------------------------------------
+
+
+def _device_msm(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
+    """One segment: pool (VC, n) affine words, d its uploaded schedule ->
+    (C, 8 * 32) words of the projective bit-subset sums."""
+    C = CK.rows(curve)
+    rows1, lanes1 = d["flag"].shape
+    vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1, lanes1)
+    emit = CK.runscan(vals, d["flag"], curve)
+    rows2, lanes2 = d["flag2"].shape
+    vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(C, rows2, lanes2)
+    emit2 = CK.runscan(vals2, d["flag2"], curve, proj_in=True).view(C, -1)
+    nb = SCAN_WINDOWS * SCAN_BUCKETS
+    K = d["dense"].numel() // nb
+    dense = emit2.index_select(1, d["dense"]).view(C, K, nb)
+    merged = dense[:, 0].contiguous()
+    for k in range(1, K):
+        merged = CK.pairs_add(merged, dense[:, k].contiguous(), curve)
+    h = SCAN_BUCKETS // 2
+    x = merged.index_select(1, _subset_idx(pool.device)).view(C, -1, h)
+    while h > 1:
+        h //= 2
+        a = x[:, :, :h].contiguous().view(C, -1)
+        b = x[:, :, h:2 * h].contiguous().view(C, -1)
+        x = CK.pairs_add(a, b, curve).view(C, -1, h)
+    return x[:, :, 0]
+
+
+# ---------------------------------------------------------------------------
+# host tail
+# ---------------------------------------------------------------------------
+
+
+class _JacField:
+    """Host big-int Jacobian arithmetic, generic over Fq / Fq2."""
+
+    def __init__(self, fq2: bool):
+        if fq2:
+            self.mul, self.add, self.sub = tw.fq2_mul, tw.fq2_add, tw.fq2_sub
+            self.sqr, self.inv = tw.fq2_sqr, tw.fq2_inv
+            self.zero = (0, 0)
+        else:
+            self.mul = lambda a, b: a * b % _P
+            self.add = lambda a, b: (a + b) % _P
+            self.sub = lambda a, b: (a - b) % _P
+            self.sqr = lambda a: a * a % _P
+            self.inv = lambda a: pow(a, _P - 2, _P)
+            self.zero = 0
+
+    def dbl(self, pt):
+        x, y, z = pt
+        if z == self.zero:
+            return pt
+        A = self.sqr(x)
+        B = self.sqr(y)
+        C = self.sqr(B)
+        D = self.sub(self.sqr(self.add(x, B)), self.add(A, C))
+        D = self.add(D, D)
+        E = self.add(self.add(A, A), A)
+        F = self.sqr(E)
+        x3 = self.sub(F, self.add(D, D))
+        c8 = self.add(self.add(C, C), self.add(C, C))
+        c8 = self.add(c8, c8)
+        y3 = self.sub(self.mul(E, self.sub(D, x3)), c8)
+        z3 = self.mul(self.add(y, y), z)
+        return (x3, y3, z3)
+
+    def addp(self, p1, p2):
+        x1, y1, z1 = p1
+        x2, y2, z2 = p2
+        if z1 == self.zero:
+            return p2
+        if z2 == self.zero:
+            return p1
+        z1z1 = self.sqr(z1)
+        z2z2 = self.sqr(z2)
+        u1 = self.mul(x1, z2z2)
+        u2 = self.mul(x2, z1z1)
+        s1 = self.mul(self.mul(y1, z2), z2z2)
+        s2 = self.mul(self.mul(y2, z1), z1z1)
+        if u1 == u2:
+            if s1 == s2:
+                return self.dbl(p1)
+            return (self.zero, self.zero, self.zero)  # P + (-P)
+        h = self.sub(u2, u1)
+        i = self.sqr(self.add(h, h))
+        j = self.mul(h, i)
+        r = self.sub(s2, s1)
+        r = self.add(r, r)
+        v = self.mul(u1, i)
+        x3 = self.sub(self.sub(self.sqr(r), j), self.add(v, v))
+        s1j = self.mul(s1, j)
+        y3 = self.sub(self.mul(r, self.sub(v, x3)), self.add(s1j, s1j))
+        z3 = self.mul(self.sub(self.sub(self.sqr(self.add(z1, z2)), z1z1),
+                               z2z2), h)
+        return (x3, y3, z3)
+
+    def to_affine(self, pt):
+        x, y, z = pt
+        if z == self.zero:
+            return None
+        zi = self.inv(z)
+        zi2 = self.sqr(zi)
+        return (self.mul(x, zi2), self.mul(self.mul(y, zi2), zi))
+
+
+def _finish_host(g: np.ndarray, curve: str):
+    """g: (C, 8 * 32) uint32 words of projective bit-subset sums (group
+    t * 32 + w) -> the affine MSM result. A projective point maps into
+    Jacobian coordinates as (X*Z, Y*Z^2, Z)."""
+    fq2 = curve == "g2"
+    F = _JacField(fq2)
+    coords = [L.decode_mont(g[8 * i:8 * (i + 1)], L.FQ)
+              for i in range(g.shape[0] // 8)]
+    if fq2:
+        coords = [list(zip(coords[2 * i], coords[2 * i + 1]))
+                  for i in range(3)]
+    pts = [
+        (F.mul(x, z), F.mul(y, F.sqr(z)), z) if z != F.zero
+        else (F.zero, F.zero, F.zero)
+        for x, y, z in zip(*coords)
+    ]
+    windows = []
+    for w in range(SCAN_WINDOWS):
+        acc = pts[(SCAN_BITS - 1) * SCAN_WINDOWS + w]
+        for t in range(SCAN_BITS - 2, -1, -1):
+            acc = F.addp(F.dbl(acc), pts[t * SCAN_WINDOWS + w])
+        windows.append(acc)
+    acc = windows[-1]
+    for w in range(SCAN_WINDOWS - 2, -1, -1):
+        for _ in range(SCAN_BITS):
+            acc = F.dbl(acc)
+        acc = F.addp(acc, windows[w])
+    return F.to_affine(acc)
+
+
+# ---------------------------------------------------------------------------
+# public API: begin / end for pipelining
+# ---------------------------------------------------------------------------
+
+
+def prepare_g1(points, device="cuda"):
+    """Device-resident (16, n) pool of affine G1 points [X | Y] as Montgomery
+    words. Identity (None) points are stored as the generator and corrected
+    at msm_end, so the schedule does not depend on the pool."""
+    dev = resolve(device)
+    gen = G1.generator()
+    pts = [gen if p is None else p for p in points]
+    inf = np.array([p is None for p in points], dtype=bool)
+    words = np.concatenate([L.encode_mont([p[0] for p in pts], L.FQ),
+                            L.encode_mont([p[1] for p in pts], L.FQ)])
+    return (L.to_tensor(words, dev), inf, "g1")
+
+
+def prepare_g2(points, device="cuda"):
+    """(32, n) pool of affine G2 points [X.c0 | X.c1 | Y.c0 | Y.c1]."""
+    dev = resolve(device)
+    gen = G2.generator()
+    pts = [gen if p is None else p for p in points]
+    inf = np.array([p is None for p in points], dtype=bool)
+    words = np.concatenate([
+        L.encode_mont([p[c][k] for p in pts], L.FQ)
+        for c in (0, 1) for k in (0, 1)])
+    return (L.to_tensor(words, dev), inf, "g2")
+
+
+def _inf_correction(digits: np.ndarray, inf) -> int:
+    """Combined scalar of the identity slots, sum_i z_i over them (mod r),
+    rebuilt from the window digits: the pool holds the generator there, so
+    the scan result is off by exactly corr * G."""
+    if inf is None or not inf.any():
+        return 0
+    sums = digits[:, inf].sum(axis=1, dtype=np.int64)
+    corr = 0
+    for w in range(digits.shape[0] - 1, -1, -1):
+        corr = (corr << SCAN_BITS) + int(sums[w])
+    return corr % _FR
+
+
+def _apply_corr(res, curve: str, corr: int):
+    if corr == 0:
+        return res
+    C = G1 if curve == "g1" else G2
+    return C.add(res, C.mul(C.generator(), _FR - corr))
+
+
+class _MultiMsm:
+    """Handle of a segmented MSM: segment finals add up at msm_end."""
+
+    def __init__(self):
+        self.pending = []  # device finals, dispatch order
+        self.done = []  # fetched finals (uint32 numpy)
+
+
+def build_segment_schedules(digits: np.ndarray, lanes: int = LANES) -> list:
+    """Host schedules of each CHUNK_N-point segment of one scalar vector.
+    The list is shareable across MSMs with the same scalars: each entry's
+    device copy is uploaded once and cached in the entry."""
+    n = digits.shape[1]
+    segs = []
+    for lo in range(0, max(n, 1), CHUNK_N):
+        hi = min(lo + CHUNK_N, n)
+        segs.append({"lo": lo, "hi": hi,
+                     "sched": build_schedule(digits[:, lo:hi], lanes=lanes),
+                     "dev": None})
+    return segs
+
+
+def upload_segment_schedules(segs: list, device) -> None:
+    for seg in segs:
+        if seg["dev"] is None:
+            seg["dev"] = _upload(seg["sched"], device)
+
+
+def msm_begin_scheds(prepared, segs: list, corr: int = 0):
+    """Dispatch every segment over prebuilt schedules (asynchronous on the
+    card). `corr`: the identity-slot correction of this pool."""
+    pool, _inf, curve = prepared
+    upload_segment_schedules(segs, pool.device)
+    multi = _MultiMsm()
+    for seg in segs:
+        multi.pending.append(
+            _device_msm(pool[:, seg["lo"]:seg["hi"]], seg["dev"], curve))
+        if len(multi.pending) >= MAX_INFLIGHT:
+            multi.done.append(L.to_numpy(multi.pending.pop(0)))
+    return (multi, curve, corr)
+
+
+def msm_begin(prepared, scalars, curve: str, digits: np.ndarray = None):
+    if digits is None:
+        digits = scalar_digits(scalars)
+    segs = build_segment_schedules(
+        digits, LANES if curve == "g1" else LANES_G2)
+    return msm_begin_scheds(prepared, segs,
+                            _inf_correction(digits, prepared[1]))
+
+
+def _finish_multi(finals, curve: str):
+    add = G1.add if curve == "g1" else G2.add
+    acc = None
+    for f in finals:
+        acc = add(acc, _finish_host(f, curve))
+    return acc
+
+
+def msm_end_many(handles) -> list:
+    out = []
+    for multi, curve, corr in handles:
+        finals = multi.done + [L.to_numpy(p) for p in multi.pending]
+        out.append(_apply_corr(_finish_multi(finals, curve), curve, corr))
+    return out
+
+
+def msm_end(handle):
+    return msm_end_many([handle])[0]
+
+
+def msm_g1(points, scalars, device="cuda"):
+    if not points:
+        return None
+    return msm_end(msm_begin(prepare_g1(points, device), scalars, "g1"))
+
+
+def msm_g2(points, scalars, device="cuda"):
+    if not points:
+        return None
+    return msm_end(msm_begin(prepare_g2(points, device), scalars, "g2"))
