@@ -2,29 +2,45 @@
 """Smoke run of the PyTorch/H100 port of the Groth16 prover on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --phases kernels,keygen   # a subset, no result
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: card name and power limit, CUDA and nvcc versions, and the
-     build of the four kernels from zelana_tpu_torch/csrc (one nvcc per
+     build of the five kernels from zelana_tpu_torch/csrc (one nvcc per
      source, in parallel), with ptxas register and spill counts;
-  2. each kernel against its plain PyTorch version on the card, exact
-     equality: mont_mul (2^16 Fr and Fq, with 0, 1 and p - 1), one butterfly
-     stage (n = 2^16), runscan in its four variants on a real schedule over
-     a 2^12-point pool, pairs_add (G1, G2) at 2^14;
-  3. the slice through its entry points: prove and prove_many over the
-     L2 block circuit with artifacts/l2_dummy_pk.npz, every proof checked
-     by verify, the batch_id = 1 proof byte-equal to the vector the JAX
-     package recorded; launch counts of the four kernels on this run;
-     one more prove under torch.profiler gives the device's idle share;
-  4. the production chunk's size (1,128,532 constraints, 2^21 domain) with
-     synthetic inputs: the witness map at 2^21 against its plain version on
-     the card, and G1 / G2 MSMs at chunk size against their closed form;
-     each kernel's time at these shapes beside its bound;
-  5. one JSON line of per-kernel numbers, then the result line.
+  2. `kernels`: each kernel against its plain PyTorch version on the card,
+     exact equality: mont_mul (2^16 Fr and Fq, with 0, 1 and p - 1), one
+     butterfly stage (n = 2^16), runscan in its four variants on a real
+     schedule over a 2^12-point pool, pairs_add (G1, G2) at 2^14, step (G1,
+     G2, general and mixed) at S = 2^14 by slot ids and by pairing, and the
+     five step rounds of one 32,768-scalar keygen chunk (G1, G2);
+  3. `slice`: prove and prove_many over the L2 block circuit with
+     artifacts/l2_dummy_pk.npz, every proof checked by verify, the
+     batch_id = 1 proof byte-equal to the vector the JAX package recorded;
+     launch counts of the prover's four kernels on this run; one more
+     prove under torch.profiler gives the device's idle share;
+  4. `keygen`: keygen of the L2 dummy circuit and Groth16ChunkProver.setup
+     of the (1,0,1) depth-1 chunk, each equal array for array to the JAX
+     package's seed-0 key in artifacts/; the dryrun chunk's proof equal to
+     zelana_tpu_torch/testdata/chunk_101_d1_proof.json, and
+     prove_synthesized equal to the DSL prove on that chunk;
+  5. `chunk`: the witness map at 2^21 against its plain version on the
+     card, and G1 / G2 MSMs at chunk size against their closed form (pools
+     of synthetic points); kernel times at these shapes beside their bound;
+  6. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
+     production key (1,129,391 variables, 2^21 domain) with the step
+     kernel, then prove_chunks proves a batch that fills two chunks; both
+     proofs pass verify_chunk and their roots chain. Phase times of keygen,
+     per-chunk prove times, the idle share of one chunk prove under
+     torch.profiler and the peak device memory;
+  7. one JSON line of per-kernel numbers (launches: the prover's kernels
+     on the L2 slice, step on the production keygen), the card, the
+     result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -39,6 +55,8 @@ MUL_OPS = 2 * 2 * 8 * 8 + 8  # one 8x32-bit CIOS: 128 wide products, 8 m's
 
 CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
+PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
+PHASES = ("kernels", "slice", "keygen", "chunk", "production")
 
 
 def log(*a):
@@ -46,8 +64,16 @@ def log(*a):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + "; a subset prints no result line")
+    phases = ap.parse_args().phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phase in {phases}")
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -83,9 +109,25 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     report = {}
-    kernels = phase_kernels(torch, dev, report)
-    launches = phase_slice(torch, dev, report)
-    phase_chunk(torch, dev, report)
+    kernels, launches = [], {}
+    if "kernels" in phases:
+        kernels = phase_kernels(torch, dev, report)
+    if "slice" in phases:
+        launches.update(phase_slice(torch, dev, report))
+    if "keygen" in phases:
+        phase_keygen(report)
+    if "chunk" in phases:
+        phase_chunk(torch, dev, report)
+    if "production" in phases:
+        # step's launches come from the production keygen
+        launches["step"] = phase_production(torch, report)["step"]
+    wall = time.time() - t_start
+    report["wall_s"] = wall
+    log(f"chip_smoke wall time: {wall:.1f} s")
+    log(json.dumps({"card": card, "report": report}))
+    if phases != list(PHASES):
+        log(f"partial run ({','.join(phases)}): no result line")
+        return 0
 
     out = []
     for k in kernels:
@@ -93,7 +135,6 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
-    log(json.dumps({"card": card, "report": report}))
     log(card)
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -274,6 +315,40 @@ def phase_kernels(torch, dev, report) -> list:
                           "zelana_tpu_torch/csrc/curve_kernels.cu",
                           "zelana_tpu/ops/pallas_curve.py:545", pa_err,
                           pa["ms"], pa["plain"], bms, by))
+
+    # step: G1 / G2, general / mixed, at S = 2^14 over random field words
+    # (the adds are straight-line formulas, so any words compare bit for
+    # bit). Pool: reads from [0, 2S), writes [2S, 3S), guard slots after;
+    # the whole pool is compared, so slots outside the write block must
+    # come back untouched.
+    S = 1 << 14
+    st_err = 0
+    for curve in ("g1", "g2"):
+        C = CK.rows(curve)
+        pool = torch.cat([rand_words(torch, rng, L.FQ.modulus >> 224,
+                                     3 * S + 64, dev)
+                          for _ in range(C // 8)])
+        ia, ib = (torch.from_numpy(rng.integers(0, 2 * S, S).astype(
+            np.int32)).to(dev) for _ in range(2))
+        for mixed in (False, True):
+            kind = "mixed" if mixed else "general"
+            got, want = pool.clone(), pool.clone()
+            CK.step(got, 2 * S, S, curve, ia, ib, read_hi=2 * S, mixed=mixed)
+            CK.step_plain(want, 2 * S, S, curve, ia, ib, mixed=mixed)
+            st_err = max(st_err, check(f"step {curve} {kind} by ids", got,
+                                       want))
+            got, want = pool.clone(), pool.clone()
+            CK.step(got, 2 * S, S, curve, base=0, mixed=mixed)
+            CK.step_plain(want, 2 * S, S, curve, base=0, mixed=mixed)
+            st_err = max(st_err, check(f"step {curve} {kind} by pairing",
+                                       got, want))
+    st = _step_keygen_chunk(torch, dev, rng, check)
+    st_err = max(st_err, st["err"])
+    kernels.append(_entry("step", "zelana_tpu_torch/csrc/curve_kernels.cu",
+                          "zelana_tpu/ops/pallas_curve.py:398", st_err,
+                          st["ms"], st["plain"], st["bound_ms"],
+                          st["bound_by"]))
+    report["step_keygen_chunk"] = st
     for k in kernels:
         k["mismatches"] = mismatches[k["name"]]
         log(f"  {k['name']}: {k['ms']:.4f} ms kernel, {k['plain_ms']:.3f} ms "
@@ -283,6 +358,70 @@ def phase_kernels(torch, dev, report) -> list:
                              f"{mismatches}")
     report["kernels_checked"] = [k["name"] for k in kernels]
     return kernels
+
+
+def _step_keygen_chunk(torch, dev, rng, check) -> dict:
+    """The five step rounds of one FB_CHUNK-scalar keygen chunk, as
+    fixed_base._run_fb launches them (round 0 by slot ids into the window
+    table, rounds 1-4 by pairing), for G1 and for G2: kernel against plain
+    over the whole pool, and the times of the five rounds summed over both
+    curves beside their bound. Per launch the bound counts the slots read
+    (round 0: the table head once, and the two id arrays) and written, and
+    12 (G1) or 42 (G2) Montgomery products per add."""
+    import numpy as np
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import fixed_base as FB
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.r1cs.native_synth import fr_array, words32
+
+    n = FB.FB_CHUNK
+    out = {"err": 0, "ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+    scalars = [int.from_bytes(rng.bytes(32), "little") % FR
+               for _ in range(n)]
+    scalars[:3] = [0, 1, FR - 1]
+    words = L.to_tensor(words32(fr_array(scalars)), dev)
+    ia, ib = FB._slot_ids(words)
+    bases, sizes, total = FB._slot_plan(n)
+    for curve, prep, gen in (("g1", FB.prepare_table_g1, G1.generator()),
+                             ("g2", FB.prepare_table_g2, G2.generator())):
+        C = CK.rows(curve)
+        head = prep(gen, dev)[1]
+        pool = torch.zeros((C, total), dtype=torch.int32, device=dev)
+        pool[:, :FB.N_TABLE + 1] = head
+
+        def rounds(p, plain=False):
+            if plain:
+                CK.step_plain(p, bases[0], sizes[0], curve, ia, ib)
+            else:
+                CK.step(p, bases[0], sizes[0], curve, ia, ib,
+                        read_hi=FB.N_TABLE + 1)
+            for r in range(1, FB.ROUNDS):
+                (CK.step_plain if plain else CK.step)(
+                    p, bases[r], sizes[r], curve, base=bases[r - 1])
+            return p
+
+        got = rounds(pool.clone())
+        want = rounds(pool.clone(), plain=True)
+        out["err"] = max(out["err"], check(
+            f"step {curve} keygen chunk ({n} scalars, 5 rounds)", got, want))
+        work = pool.clone()
+        out["ms"] += cuda_ms(torch, lambda: rounds(work), 5)
+        out["plain"] += cuda_ms(torch, lambda: rounds(work, True), 1, False)
+        muls = 12 if curve == "g1" else 42
+        for r in range(FB.ROUNDS):
+            read = (2 * sizes[r] * C * 4 if r else
+                    (FB.N_TABLE + 1) * C * 4 + 2 * sizes[r] * 4)
+            out["bytes"] += read + sizes[r] * C * 4
+            out["ops"] += sizes[r] * muls * MUL_OPS
+        del pool, got, want, work
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
+    log(f"  step, one keygen chunk, G1 + G2: {out['ms']:.4f} ms kernel, "
+        f"{out['plain']:.1f} ms plain, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    return out
 
 
 def _entry(name, source, replaces, err, ms, plain, bms, by) -> dict:
@@ -337,7 +476,8 @@ def phase_slice(torch, dev, report) -> dict:
     many = prove_many(pk, [(circuit, b) for b in (2, 3, 4, 5)])
     torch.cuda.synchronize()
     t2 = time.time()
-    launches = dict(cuda.LAUNCHES)
+    # step is keygen's kernel, not the prover's (production phase)
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if k != "step"}
     log(f"launches on the slice: {launches}")
 
     proofs = [first] + many
@@ -401,7 +541,84 @@ def phase_slice(torch, dev, report) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: production chunk size, synthetic inputs
+# keygen against the committed seed-0 keys; the dryrun chunk's proof
+# ---------------------------------------------------------------------------
+
+
+def same_key(pk, path: str) -> None:
+    """Raise unless pk's npz arrays equal those of the key at `path`."""
+    import numpy as np
+
+    got = pk.to_arrays()
+    with np.load(path) as want:
+        if sorted(got) != sorted(want.files):
+            raise AssertionError(f"{path}: arrays {sorted(got)} against "
+                                 f"{sorted(want.files)}")
+        bad = [k for k in want.files if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"keygen differs from {path} in {bad}")
+    log(f"  key equal to {path}, array for array "
+        f"({sum(len(v) for v in got.values())} rows)")
+
+
+def dryrun_chunk():
+    """The (1,0,1) depth-1 dryrun chunk: a transfer and a full shielded
+    spend."""
+    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+    b = ChunkWitnessBuilder(1)
+    b.fund(1, 100)  # depth-1 SMT: positions pk & 1
+    b.fund(2, 0)
+    note = b.add_note(spending_key=777, value=9, blinding=42)
+    return Dispatcher.build_chunks_with_witness(
+        b, [(1, 2, 10)], [], [("full", note, 777, 0xFACE, 9, 7)],
+        capacity=(1, 0, 1), pre_shielded_root=b.shielded_root())[0]
+
+
+def phase_keygen(report) -> None:
+    from zelana_tpu_torch.circuits.l2_block import L2BlockCircuit
+    from zelana_tpu_torch.groth16.prove import prove
+    from zelana_tpu_torch.groth16.setup import keygen
+    from zelana_tpu_torch.runtime.chunk_prover import (Groth16ChunkProver,
+                                                       sunspot_proof_bytes)
+
+    t0 = time.time()
+    pk = keygen(L2BlockCircuit.dummy(), 0)
+    t1 = time.time()
+    log(f"keygen, L2 dummy circuit: {t1 - t0:.2f} s")
+    same_key(pk, "artifacts/l2_dummy_pk.npz")
+    t1 = time.time()
+    prover = Groth16ChunkProver.setup((1, 0, 1), 1, 0)
+    t2 = time.time()
+    log(f"Groth16ChunkProver.setup((1, 0, 1), 1): {t2 - t1:.2f} s")
+    same_key(prover.pk, "artifacts/chunk_101_d1_pk.npz")
+    report["keygen"] = {"l2_dummy_s": t1 - t0, "chunk_101_d1_s": t2 - t1}
+
+    with open("zelana_tpu_torch/testdata/chunk_101_d1_proof.json") as f:
+        vec = json.load(f)
+    chunk = dryrun_chunk()
+    cp = prover.prove_chunk(chunk, vec["batch_id"])
+    if cp.proof_bytes.hex() != vec["proof_bytes"]:
+        raise AssertionError("dryrun chunk proof differs from the JAX vector")
+    if [str(v) for v in cp.public_inputs] != vec["public_inputs"]:
+        raise AssertionError("dryrun chunk public inputs differ")
+    if not prover.verify_chunk(cp):
+        raise AssertionError("dryrun chunk proof does not verify")
+    t3 = time.time()
+    dsl = prove(prover.pk, prover.build_circuit(chunk, vec["batch_id"]),
+                batch_id=vec["batch_id"])
+    t4 = time.time()
+    if sunspot_proof_bytes(dsl) != cp.proof_bytes:
+        raise AssertionError("prove_synthesized and the DSL prove differ on "
+                             "the dryrun chunk")
+    log(f"dryrun chunk: proof byte-equal to the JAX vector, verified; "
+        f"DSL prove of the same chunk equal ({t4 - t3:.2f} s)")
+    report["keygen"]["dsl_prove_101_s"] = t4 - t3
+
+
+# ---------------------------------------------------------------------------
+# phase 5: production chunk size, synthetic inputs
 # ---------------------------------------------------------------------------
 
 
@@ -545,6 +762,141 @@ def _tiled_scalar(limbs, tile: int) -> int:
                 for k in range(4))
         total += s * (j + 1)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the production chunk, keygen and two pipelined proves
+# ---------------------------------------------------------------------------
+
+
+def phase_production(torch, report) -> dict:
+    """Returns the kernel launches of the production keygen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zelana_tpu_torch.groth16.keys import prepare_queries
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+    from zelana_tpu_torch.trace import phase_log_start, phase_log_take
+
+    cap, depth = PRODUCTION
+    rep = report["production"] = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    # under the profiler: its device busy time splits keygen's wall time
+    # into device work and the host around it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        phase_log_start()
+        t0 = time.time()
+        prover = Groth16ChunkProver.setup(cap, depth, seed=0)
+        torch.cuda.synchronize()
+        rep["keygen_s"] = time.time() - t0
+        launches = dict(cuda.LAUNCHES)
+        rep["keygen_phases"] = _phases(phase_log_take(), t0)
+    busy = _device_busy_ms(prof, "keygen")
+    rep["keygen_device_busy_s"] = busy / 1e3
+    rep["keygen_launches"] = launches
+    rep["keygen_peak_bytes"] = torch.cuda.max_memory_allocated()
+    pk = prover.pk
+    log(f"production keygen ({cap}, depth {depth}): {rep['keygen_s']:.1f} s "
+        f"wall, device busy {busy / 1e3:.3f} s, {len(pk.a_query)} "
+        f"variables, h query {len(pk.h_query)}, launches {launches}, peak "
+        f"device memory {rep['keygen_peak_bytes'] / 2**30:.2f} GiB")
+    if launches["step"] == 0:
+        raise AssertionError("production keygen launched no step kernel")
+
+    t0 = time.time()
+    prepare_queries(pk, prover.device)
+    torch.cuda.synchronize()
+    rep["query_upload_s"] = time.time() - t0
+    log(f"query pools encoded + uploaded: {rep['query_upload_s']:.2f} s")
+
+    # a batch that fills two chunks: 16 transfers, 8 withdrawals and 8
+    # shielded slots, the first a full-verification spend
+    t0 = time.time()
+    builder = ChunkWitnessBuilder(depth)
+    for pk_i in range(1, 16):
+        builder.fund(pk_i, 10_000)
+    note = builder.add_note(spending_key=777, value=50, blinding=42)
+    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i)
+                 for i in range(2 * cap[0])]
+    withdrawals = [(1 + i, 0xAA00 + i, 5 + i) for i in range(2 * cap[1])]
+    shielded = [("full", note, 777, 0xFACE, 50, 4242)] + [
+        1000 + i for i in range(2 * cap[2] - 1)]
+    chunks = Dispatcher.build_chunks_with_witness(
+        builder, transfers, withdrawals, shielded, capacity=cap,
+        pre_shielded_root=builder.shielded_root())
+    if len(chunks) != 2:
+        raise AssertionError(f"the batch made {len(chunks)} chunks, not 2")
+    log(f"batch witnesses (depth-32 SMT paths, 2 chunks): "
+        f"{time.time() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    t0 = time.time()
+    cps = prover.prove_chunks(chunks, batch_id=7)
+    torch.cuda.synchronize()
+    rep["prove_chunks_s"] = time.time() - t0
+    rep["prove_launches"] = dict(cuda.LAUNCHES)
+    rep["prove_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rep["prove_peak_over_key_bytes"] = rep["prove_peak_bytes"] - base
+    rep["chunk_ms"] = [cp.proving_time_ms for cp in cps]
+    log(f"prove_chunks, 2 chunks: {rep['prove_chunks_s']:.2f} s; per chunk "
+        f"{rep['chunk_ms']} ms (first, pipelined second); launches "
+        f"{rep['prove_launches']}; peak device memory "
+        f"{rep['prove_peak_bytes'] / 2**30:.2f} GiB "
+        f"({rep['prove_peak_over_key_bytes'] / 2**30:.2f} GiB over the "
+        f"resident key)")
+    t0 = time.time()
+    for cp in cps:
+        if not prover.verify_chunk(cp):
+            raise AssertionError(f"chunk {cp.chunk_index} does not verify")
+    a, b = cps[0].public_inputs, cps[1].public_inputs
+    if a[1] != b[0] or a[3] != b[2]:
+        raise AssertionError("chunk roots do not chain")
+    log(f"both chunk proofs verify ({time.time() - t0:.2f} s), roots chain")
+
+    # one chunk prove under the profiler: device busy time against wall
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        phase_log_start()
+        t0 = time.time()
+        again = prover.prove_chunk(chunks[0], batch_id=7)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        phases = _phases(phase_log_take(), t0)
+    if again.proof_bytes != cps[0].proof_bytes:
+        raise AssertionError("prove_chunk and prove_chunks differ on chunk 0")
+    busy = _device_busy_ms(prof, "chunk prove")
+    rep.update(profiled_wall_ms=wall, device_busy_ms=busy,
+               idle_share=1 - busy / wall, prove_phases=phases)
+    log(f"chunk prove under the profiler: {wall:.1f} ms wall, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}; equal to the "
+        f"pipelined proof")
+    return launches
+
+
+def _device_busy_ms(prof, what: str) -> float:
+    """Sum of the device's self time over a profile; logs the top kernels."""
+    events = prof.key_averages()
+    log(f"{what}, device time by kernel:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:70]}")
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
+def _phases(entries, t0) -> list:
+    """Log and return the (seconds since t0, label) of trace entries."""
+    out = [(round(at - t0, 3), label) for at, _, label in entries]
+    for at, label in out:
+        log(f"  [+{at:8.3f} s] {label}")
+    return out
 
 
 if __name__ == "__main__":

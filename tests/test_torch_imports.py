@@ -33,6 +33,20 @@ class Cubic:
 
 pk = ProvingKey.load_npz({key!r})
 assert verify(pk.vk, prove(pk, Cubic(), batch_id=3, device="cpu"), [35])
+
+# the chunk path's modules: keygen, native synthesis, the chunk prover
+from zelana_tpu_torch.groth16.setup import keygen
+from zelana_tpu_torch.ops import fixed_base, staging
+from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+assert (keygen(Cubic(), seed=0, device="cpu").serialize_compressed()
+        == pk.serialize_compressed())
+system = __import__("zelana_tpu_torch.r1cs.native_synth", fromlist=["x"]
+                    ).synthesize_chunk(Groth16ChunkProver.dummy_circuit(
+                        (0, 0, 0), 1))
+assert system.check() == -1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or (m.startswith("zelana_tpu") and
@@ -95,3 +109,18 @@ def test_default_device_raises_without_cuda(cubic_key):
         prepare_queries(pk)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         msm_scan.msm_g1([(1, 2)], [5])
+
+    from zelana_tpu_torch.curves import g1
+    from zelana_tpu_torch.groth16.prove import prove_synthesized
+    from zelana_tpu_torch.groth16.setup import keygen, keygen_synthesized
+    from zelana_tpu_torch.ops import fixed_base
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+
+    for call in (lambda: keygen(object()),
+                 lambda: keygen_synthesized(object()),
+                 lambda: prove_synthesized(pk, object()),
+                 lambda: fixed_base.prepare_table_g1(g1.generator()),
+                 lambda: Groth16ChunkProver(pk, (1, 0, 1), 1),
+                 lambda: Groth16ChunkProver.setup((0, 0, 0), 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

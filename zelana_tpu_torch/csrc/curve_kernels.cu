@@ -1,5 +1,6 @@
-// Point kernels of the run-scan MSM: the bucket run-scan and the batched
-// complete projective add, for G1 (over Fq) and G2 (over Fq2).
+// Point kernels, for G1 (over Fq) and G2 (over Fq2): the bucket run-scan and
+// the batched complete projective add of the run-scan MSM, and the in-place
+// slot-pool step of the fixed-base (keygen) reduction tree.
 //
 // runscan replaces pallas_curve.runscan_call. The TPU kernel walks the R+1
 // stream rows as a sequential grid and carries each lane's partial bucket sum
@@ -70,6 +71,69 @@ __global__ void __launch_bounds__(128)
     if (i >= n) return;
     store_proj(out, n, i,
                complete_add(load_proj<T>(a, n, i), load_proj<T>(b, n, i)));
+}
+
+// step replaces pallas_curve.step_call: one round of a slot-pool reduction
+// (fixed_base._run_fb; the tape MSM's rounds too). The TPU kernel is handed
+// two operand blocks that XLA gathered beforehand and writes the S sums in
+// place at a scalar-prefetched pool offset (input_output_aliases). Here each
+// thread reads its two operands straight from the pool by index, so the two
+// (C, S) gathered copies are never materialised (50 MB each for a G1 round 0
+// of a 32,768-scalar keygen chunk), and writes pool[:, off + i]. Operand i
+// is pool slot ia[i] / ib[i], or, with no index arrays, slots base + 2i and
+// base + 2i + 1 (the pairing of the previous round's block). The wrapper
+// checks that the slots read and the slots written are disjoint. MIXED
+// reads only X | Y (operands with Z = 1) and adds with complete_add_mixed.
+// One thread per add, as pairs_add; the bound is integer multiplies
+// (12 Fq products a G1 add, 42 a G2 add, 264 multiply instructions each).
+template <class T, bool MIXED>
+__global__ void __launch_bounds__(128)
+    step_kernel(u32* __restrict__ pool, const int* __restrict__ ia,
+                const int* __restrict__ ib, long base, long off, long S,
+                long total) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= S) return;
+    const long a = ia ? (long)ia[i] : base + 2 * i;
+    const long b = ib ? (long)ib[i] : base + 2 * i + 1;
+    Proj<T> r;
+    if (MIXED) {
+        constexpr int K = Coord<T>::ROWS;
+        r = complete_add_mixed(Coord<T>::load(pool, total, a),
+                               Coord<T>::load(pool + K * total, total, a),
+                               Coord<T>::load(pool, total, b),
+                               Coord<T>::load(pool + K * total, total, b));
+    } else {
+        r = complete_add(load_proj<T>(pool, total, a),
+                         load_proj<T>(pool, total, b));
+    }
+    store_proj(pool, total, off + i, r);
+}
+
+// pool: (C, total) projective words, updated in place at columns
+// [off, off + S). ia / ib: S int32 slot ids each, or both null for the
+// (base + 2i, base + 2i + 1) pairing.
+extern "C" int zt_step(int curve, int mixed, void* pool, const void* ia,
+                       const void* ib, long base, long off, long S,
+                       long total, void* stream) {
+    if (S <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    unsigned blocks = (unsigned)((S + 127) / 128);
+    u32* p = (u32*)pool;
+    const int* a = (const int*)ia;
+    const int* b = (const int*)ib;
+    if (curve == 0 && !mixed)
+        step_kernel<Fq, false><<<blocks, 128, 0, s>>>(p, a, b, base, off, S,
+                                                      total);
+    else if (curve == 0)
+        step_kernel<Fq, true><<<blocks, 128, 0, s>>>(p, a, b, base, off, S,
+                                                     total);
+    else if (!mixed)
+        step_kernel<Fq2, false><<<blocks, 128, 0, s>>>(p, a, b, base, off, S,
+                                                       total);
+    else
+        step_kernel<Fq2, true><<<blocks, 128, 0, s>>>(p, a, b, base, off, S,
+                                                      total);
+    return (int)cudaGetLastError();
 }
 
 // curve: 0 = G1, 1 = G2. proj_in: 1 for the projective level-2 stream.

@@ -34,6 +34,10 @@ __constant__ u32 kN0[2] = {0xe4866389u, 0xefffffffu};
 __constant__ u32 kOneQ[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
                              0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
                              0x9a07df2fu, 0x0e0a77c1u};
+// 3b = 9 of G1, Montgomery form over Fq
+__constant__ u32 kB3Q[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u,
+                            0x2f3d6f4du, 0x3940c6d1u, 0x2943337eu,
+                            0xa7e39857u, 0x1d9598e8u};
 // 3b' of the G2 twist, b' = 3 / (9 + u), Montgomery form (c0, c1)
 __constant__ u32 kB3G2[2][8] = {
     {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
@@ -154,14 +158,31 @@ __device__ __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b) {
     return {sub(t0, t1), sub(sub(s, t0), t1)};
 }
 
-__device__ __forceinline__ Fq2 mul_b3(const Fq2& x) {
-    Fq2 b3;
+// 3b (G1) / 3b' (G2) as a field element
+template <class T>
+__device__ __forceinline__ T b3_const();
+
+template <>
+__device__ __forceinline__ Fq b3_const<Fq>() {
+    Fq r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = kB3Q[j];
+    return r;
+}
+
+template <>
+__device__ __forceinline__ Fq2 b3_const<Fq2>() {
+    Fq2 r;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-        b3.c0.w[j] = kB3G2[0][j];
-        b3.c1.w[j] = kB3G2[1][j];
+        r.c0.w[j] = kB3G2[0][j];
+        r.c1.w[j] = kB3G2[1][j];
     }
-    return mul(x, b3);
+    return r;
+}
+
+__device__ __forceinline__ Fq2 mul_b3(const Fq2& x) {
+    return mul(x, b3_const<Fq2>());
 }
 
 template <class T>
@@ -222,6 +243,29 @@ __device__ __forceinline__ Proj<T> complete_add_z1(const Proj<T>& P,
     T t2 = mul_b3(P.Z);
     T Z3 = add(t1, t2);
     t1 = sub(t1, t2);
+    Y3 = mul_b3(Y3);
+    T X3 = sub(mul(t3, t1), mul(t4, Y3));
+    Y3 = add(mul(Y3, t0), mul(t1, Z3));
+    Z3 = add(mul(Z3, t4), mul(t0, t3));
+    return {X3, Y3, Z3};
+}
+
+// Algorithm 7 with Z1 = Z2 = 1 (both operands affine), 9 products and one
+// mul_b3, pallas_curve.complete_add_mixed. The result is projective.
+template <class T>
+__device__ __forceinline__ Proj<T> complete_add_mixed(const T& X1,
+                                                      const T& Y1,
+                                                      const T& X2,
+                                                      const T& Y2) {
+    T t0 = mul(X1, X2);
+    T t1 = mul(Y1, Y2);
+    T t3 = sub(mul(add(X1, Y1), add(X2, Y2)), add(t0, t1));
+    T t4 = add(Y1, Y2);
+    T Y3 = add(X1, X2);
+    t0 = add(add(t0, t0), t0);
+    const T b3 = b3_const<T>();
+    T Z3 = add(t1, b3);
+    t1 = sub(t1, b3);
     Y3 = mul_b3(Y3);
     T X3 = sub(mul(t3, t1), mul(t4, Y3));
     Y3 = add(mul(Y3, t0), mul(t1, Z3));

@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Sequence
 
 from ..curves import g1, g2
+from ..curves.point_array import PointArray
 
 
 @dataclass
@@ -83,11 +84,12 @@ class ProvingKey:
     vk: VerifyingKey
     beta_g1: tuple
     delta_g1: tuple
-    a_query: List[tuple] = field(default_factory=list)
-    b_g1_query: List[tuple] = field(default_factory=list)
-    b_g2_query: List[tuple] = field(default_factory=list)
-    h_query: List[tuple] = field(default_factory=list)
-    l_query: List[tuple] = field(default_factory=list)
+    # each query: a list of points or a PointArray
+    a_query: Sequence = field(default_factory=list)
+    b_g1_query: Sequence = field(default_factory=list)
+    b_g2_query: Sequence = field(default_factory=list)
+    h_query: Sequence = field(default_factory=list)
+    l_query: Sequence = field(default_factory=list)
 
     def serialize_compressed(self) -> bytes:
         out = bytearray()
@@ -148,24 +150,27 @@ class ProvingKey:
     # as u64 limb arrays: save/load in tens of seconds. Local artifact
     # cache only; the wire format stays arkworks-compressed.
 
-    def save_npz(self, path: str):
-        import numpy as np
-
+    def to_arrays(self) -> dict:
+        """The arrays save_npz writes (the inverse of
+        proving_key_from_arrays)."""
         arrs = {}
         for name, vec, comps in (
             ("a", self.a_query, 2), ("b1", self.b_g1_query, 2),
             ("b2", self.b_g2_query, 4), ("h", self.h_query, 2),
             ("l", self.l_query, 2), ("ic", self.vk.gamma_abc_g1, 2),
         ):
-            arr, inf = _pts_to_u64(vec, comps)
-            arrs[name] = arr
-            arrs[name + "_inf"] = inf
-        fixed, _ = _pts_to_u64(
-            [self.vk.alpha_g1, self.beta_g1, self.delta_g1], 2)
-        fixed2, _ = _pts_to_u64(
-            [self.vk.beta_g2, self.vk.gamma_g2, self.vk.delta_g2], 4)
-        arrs["fixed_g1"] = fixed
-        arrs["fixed_g2"] = fixed2
+            pa = PointArray.from_points(vec, comps)
+            arrs[name], arrs[name + "_inf"] = pa.arr, pa.inf
+        arrs["fixed_g1"] = PointArray.from_points(
+            [self.vk.alpha_g1, self.beta_g1, self.delta_g1], 2).arr
+        arrs["fixed_g2"] = PointArray.from_points(
+            [self.vk.beta_g2, self.vk.gamma_g2, self.vk.delta_g2], 4).arr
+        return arrs
+
+    def save_npz(self, path: str):
+        import numpy as np
+
+        arrs = self.to_arrays()
         # temp + atomic rename: an interrupted keygen must not leave a
         # truncated cache that the next run trusts (matches the .so build
         # pattern in r1cs/native_synth.py)
@@ -193,19 +198,20 @@ def proving_key_from_arrays(arrays) -> ProvingKey:
     `b2`, `h`, `l`, `ic` as (n, comps * 4) u64 limbs of affine coordinates
     with their `_inf` masks, plus `fixed_g1` (alpha, beta, delta) and
     `fixed_g2` (beta, gamma, delta). Any mapping of names to arrays works,
-    e.g. an opened np.load of a key the JAX package saved."""
+    e.g. an opened np.load of a key the JAX package saved. The query
+    vectors stay PointArrays (no Python object per point)."""
     import numpy as np
 
     vecs = {
-        name: _pts_from_u64(arrays[name], arrays[name + "_inf"], comps)
+        name: PointArray(arrays[name], arrays[name + "_inf"], comps)
         for name, comps in (("a", 2), ("b1", 2), ("b2", 4),
                             ("h", 2), ("l", 2), ("ic", 2))
     }
-    fixed = _pts_from_u64(arrays["fixed_g1"], np.zeros(3, bool), 2)
-    fixed2 = _pts_from_u64(arrays["fixed_g2"], np.zeros(3, bool), 4)
+    fixed = PointArray(arrays["fixed_g1"], np.zeros(3, bool), 2)
+    fixed2 = PointArray(arrays["fixed_g2"], np.zeros(3, bool), 4)
     vk = VerifyingKey(
         alpha_g1=fixed[0], beta_g2=fixed2[0], gamma_g2=fixed2[1],
-        delta_g2=fixed2[2], gamma_abc_g1=vecs["ic"])
+        delta_g2=fixed2[2], gamma_abc_g1=list(vecs["ic"]))
     return ProvingKey(vk=vk, beta_g1=fixed[1], delta_g1=fixed[2],
                       a_query=vecs["a"], b_g1_query=vecs["b1"],
                       b_g2_query=vecs["b2"], h_query=vecs["h"],
@@ -226,48 +232,12 @@ def prepare_queries(pk: ProvingKey, device="cuda") -> dict:
     key = str(dev)
     if key not in cache:
         ni = len(pk.vk.gamma_abc_g1)
+        l_pts = PointArray.from_points(pk.l_query, 2).with_identity_prefix(ni)
         cache[key] = {
             "a": MSM.prepare_g1(pk.a_query, dev),
             "b1": MSM.prepare_g1(pk.b_g1_query, dev),
             "b2": MSM.prepare_g2(pk.b_g2_query, dev),
-            "l": MSM.prepare_g1([None] * ni + list(pk.l_query), dev),
+            "l": MSM.prepare_g1(l_pts, dev),
             "h": MSM.prepare_g1(pk.h_query, dev),
         }
     return cache[key]
-
-
-def _pts_to_u64(points, comps: int):
-    """Affine points -> ((n, comps*4) u64 LE limbs, (n,) infinity mask).
-    comps = 2 for G1 (x, y), 4 for G2 ((x0, x1), (y0, y1))."""
-    import numpy as np
-
-    n = len(points)
-    inf = np.zeros(n, bool)
-    vals = []
-    for i, p in enumerate(points):
-        if p is None:
-            inf[i] = True
-            vals.extend([0] * comps)
-        elif comps == 2:
-            vals.extend([p[0], p[1]])
-        else:
-            vals.extend([p[0][0], p[0][1], p[1][0], p[1][1]])
-    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    return np.frombuffer(buf, "<u8").reshape(n, comps * 4).copy(), inf
-
-
-def _pts_from_u64(arr, inf, comps: int):
-    import numpy as np
-
-    rows = np.asarray(arr, dtype=np.uint64).reshape(len(arr), comps,
-                                                    4).tolist()
-    out = []
-    for i, row in enumerate(rows):
-        if inf[i]:
-            out.append(None)
-            continue
-        vs = [v0 | v1 << 64 | v2 << 128 | v3 << 192
-              for v0, v1, v2, v3 in row]
-        out.append(tuple(vs) if comps == 2
-                   else ((vs[0], vs[1]), (vs[2], vs[3])))
-    return out

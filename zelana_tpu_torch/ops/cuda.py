@@ -31,7 +31,8 @@ SOURCES = ("field_kernels", "curve_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "pairs_add": 0}
+LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "pairs_add": 0,
+            "step": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -107,6 +108,7 @@ def _declare(cdll) -> None:
         "zt_butterfly": [i, p, p, p, p, p, l, p],
         "zt_runscan": [i, i, p, p, p, i, i, p],
         "zt_pairs_add": [i, p, p, p, l, p],
+        "zt_step": [i, i, p, p, p, l, l, l, l, p],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

@@ -6,6 +6,10 @@
   ``pallas_curve.runscan_call``.
 - ``pairs_add(a, b, curve)``: batched complete projective A + B. CUDA
   kernel ``pairs_add_kernel``; replaces ``pallas_curve.pairs_add_call``.
+- ``step(pool, off, S, curve, ...)``: one in-place round of a slot-pool
+  reduction (complete add, or the 9-product mixed add of two affine
+  operands), operands read from the pool by index. CUDA kernel
+  ``step_kernel``; replaces ``pallas_curve.step_call``.
 
 Points are words-first packed columns: G1 coordinates are 8 word rows each
 (X | Y | Z, C = 24 rows projective, 16 affine), G2 coordinates 16 (c0 then
@@ -106,6 +110,39 @@ def complete_add_z1(F, P, Q):
     return X3, Y3, Z3
 
 
+def complete_add_mixed(F, P, Q):
+    """Algorithm 7 with Z1 = Z2 = 1: P = (X1, Y1), Q = (X2, Y2) affine; 9
+    products and one mul_b3, projective result. Off-curve inputs give
+    garbage, never a fault."""
+    X1, Y1 = P
+    X2, Y2 = Q
+    t0 = F.mul(X1, X2)
+    t1 = F.mul(Y1, Y2)
+    t3 = F.sub(F.mul(F.add(X1, Y1), F.add(X2, Y2)), F.add(t0, t1))
+    t4 = F.add(Y1, Y2)
+    Y3 = F.add(X1, X2)
+    t0 = F.add(F.add(t0, t0), t0)
+    b3 = F.b3_const(t1)
+    Z3 = F.add(t1, b3)
+    t1 = F.sub(t1, b3)
+    Y3 = F.mul_b3(Y3)
+    X3 = F.sub(F.mul(t3, t1), F.mul(t4, Y3))
+    Y3 = F.add(F.mul(Y3, t0), F.mul(t1, Z3))
+    Z3 = F.add(F.mul(Z3, t4), F.mul(t0, t3))
+    return X3, Y3, Z3
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_limbs(device: torch.device) -> tuple:
+    """3b = 9 of G1 and 3b' of the G2 twist, b' = 3 / (9 + u), as
+    Montgomery limb columns (G1, G2 c0, G2 c1)."""
+    inv = tw.fq2_inv((9, 1))
+    words = L.encode_mont([9, 9 * inv[0] % L.FQ.modulus,
+                           9 * inv[1] % L.FQ.modulus], L.FQ)
+    limbs = L.unpack(L.to_tensor(words, device))
+    return limbs[:, 0:1], limbs[:, 1:2], limbs[:, 2:3]
+
+
 class PlainFq:
     """Fq over (16, *B) int64 limbs."""
 
@@ -121,15 +158,9 @@ class PlainFq:
         t = L.add_l(t, t, L.FQ)
         return L.add_l(t, x, L.FQ)
 
-
-@functools.lru_cache(maxsize=None)
-def _b3_g2_limbs(device: torch.device) -> tuple:
-    """3b' of the G2 twist, b' = 3 / (9 + u), as Montgomery limb columns."""
-    inv = tw.fq2_inv((9, 1))
-    words = L.encode_mont([9 * inv[0] % L.FQ.modulus,
-                           9 * inv[1] % L.FQ.modulus], L.FQ)
-    limbs = L.unpack(L.to_tensor(words, device))
-    return limbs[:, 0:1], limbs[:, 1:2]
+    @staticmethod
+    def b3_const(like):
+        return _b3_limbs(like.device)[0].expand(like.shape)
 
 
 class PlainFq2:
@@ -150,10 +181,13 @@ class PlainFq2:
                                      L.sub_l(a[1], b[1], L.FQ)))
 
     @staticmethod
+    def b3_const(like):
+        _, c0, c1 = _b3_limbs(like[0].device)
+        return c0.expand(like[0].shape), c1.expand(like[0].shape)
+
+    @staticmethod
     def mul_b3(x):
-        c0, c1 = _b3_g2_limbs(x[0].device)
-        shape = x[0].shape
-        return PlainFq2.mul(x, (c0.expand(shape), c1.expand(shape)))
+        return PlainFq2.mul(x, PlainFq2.b3_const(x))
 
 
 def _field(curve: str):
@@ -215,6 +249,27 @@ def pairs_add_plain(a: torch.Tensor, b: torch.Tensor,
     return L.pack(_join(complete_add(_field(curve), P, Q), curve))
 
 
+def _step_operands(ia, ib, base: int, S: int, device):
+    if ia is None:
+        ia = base + 2 * torch.arange(S, dtype=torch.int64, device=device)
+        ib = ia + 1
+    return ia, ib
+
+
+def step_plain(pool: torch.Tensor, off: int, S: int, curve: str, ia=None,
+               ib=None, base: int = 0, mixed: bool = False) -> torch.Tensor:
+    """pool[:, off + i] = pool[:, a_i] + pool[:, b_i] for i < S, in place;
+    see step for the contract. Returns pool."""
+    ia, ib = _step_operands(ia, ib, base, S, pool.device)
+    C = rows(curve)
+    nrd = 2 * C // 3 if mixed else C  # mixed reads X | Y only
+    P = _split(L.unpack(pool[:nrd].index_select(1, ia)), curve)
+    Q = _split(L.unpack(pool[:nrd].index_select(1, ib)), curve)
+    add = complete_add_mixed if mixed else complete_add
+    pool[:, off:off + S] = L.pack(_join(add(_field(curve), P, Q), curve))
+    return pool
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -249,3 +304,47 @@ def pairs_add(a: torch.Tensor, b: torch.Tensor, curve: str) -> torch.Tensor:
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), n, device=dev)
     cuda.LAUNCHES["pairs_add"] += 1
     return out
+
+
+def step(pool: torch.Tensor, off: int, S: int, curve: str, ia=None, ib=None,
+         base: int = 0, read_hi: int = None, mixed: bool = False):
+    """One in-place round of a slot-pool reduction over pool (C, total)
+    projective words: pool[:, off + i] = pool[:, a_i] + pool[:, b_i] for
+    i < S (complete add; with mixed, the 9-product add of two Z = 1
+    operands, reading X | Y only). Operands: slot ids ia, ib (S int32
+    each, all below read_hi), or with ia = ib = None the pairing
+    a_i = base + 2i, b_i = base + 2i + 1. The slots read and the slots
+    written must be disjoint; this raises otherwise. Returns pool."""
+    total = pool.shape[1]
+    if off < 0 or off + S > total:
+        raise ValueError(f"step: write block [{off}, {off + S}) outside the "
+                         f"pool of {total} slots")
+    if ia is None:
+        lo, hi = base, base + 2 * S
+        if ib is not None or lo < 0 or hi > total:
+            raise ValueError("step: bad pairing operands")
+    else:
+        lo, hi = 0, read_hi
+        if ib is None or read_hi is None:
+            raise ValueError("step: index operands need ia, ib and read_hi")
+    if lo < off + S and off < hi:
+        raise ValueError(f"step: slots read [{lo}, {hi}) overlap the slots "
+                         f"written [{off}, {off + S})")
+    if pool.device.type == "cpu":
+        if ia is not None and S and not (
+                0 <= min(int(ia.min()), int(ib.min()))
+                and max(int(ia.max()), int(ib.max())) < read_hi):
+            raise ValueError(f"step: slot ids outside [0, {read_hi})")
+        return step_plain(pool, off, S, curve, ia, ib, base, mixed)
+    tensors, shapes = [pool], [(rows(curve), total)]
+    if ia is not None:
+        tensors += [ia, ib]
+        shapes += [(S,), (S,)]
+    dev = cuda.check(tensors, shapes, "step")
+    cuda.launch("curve_kernels", "zt_step", 0 if curve == "g1" else 1,
+                int(mixed), pool.data_ptr(),
+                None if ia is None else ia.data_ptr(),
+                None if ib is None else ib.data_ptr(), base, off, S, total,
+                device=dev)
+    cuda.LAUNCHES["step"] += 1
+    return pool

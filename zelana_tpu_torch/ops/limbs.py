@@ -80,9 +80,34 @@ def from_words(words) -> list:
             for j in range(arr.shape[0])]
 
 
+NATIVE_MIN = 1024  # below this the ctypes call costs more than it saves
+
+
 def encode_mont(values, spec: FieldSpec) -> np.ndarray:
-    """ints -> (8, N) uint32 words of their Montgomery forms."""
+    """ints -> (8, N) uint32 words of their Montgomery forms. From
+    NATIVE_MIN values up the native batch encoder runs (a Python
+    `(v * R) % p` per value costs minutes over a production key's 5.7M point
+    coordinates); values outside [0, 2^256) take the Python path."""
+    if len(values) >= NATIVE_MIN:
+        try:
+            buf = b"".join(int(v).to_bytes(32, "little") for v in values)
+        except OverflowError:  # negative or >= 2^256
+            buf = None
+        if buf is not None:
+            return encode_mont_u64(
+                np.frombuffer(buf, "<u8").reshape(len(values), 4), spec)
     return to_words([(int(v) * MONT_R) % spec.modulus for v in values])
+
+
+def encode_mont_u64(arr: np.ndarray, spec: FieldSpec) -> np.ndarray:
+    """(N, 4) uint64 little-endian limbs -> (8, N) uint32 Montgomery words."""
+    from ..r1cs import native_synth as NS
+
+    arr = np.ascontiguousarray(arr, dtype=np.uint64)
+    if len(arr) < NATIVE_MIN:
+        return to_words([(v * MONT_R) % spec.modulus
+                         for v in NS.fr_ints(arr)])
+    return NS.words32(NS.mont_encode(arr, spec.modulus))
 
 
 def decode_mont(words, spec: FieldSpec) -> list:

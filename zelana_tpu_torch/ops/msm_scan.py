@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..curves import g1 as G1, g2 as G2
+from ..curves.point_array import PointArray
 from ..device import resolve
 from ..fields.bn254 import P as _P, R as _FR
 from ..fields import tower as tw
@@ -278,29 +279,27 @@ def _finish_host(g: np.ndarray, curve: str):
 # ---------------------------------------------------------------------------
 
 
+def _prepare(points, comps: int, gen, device):
+    dev = resolve(device)
+    pa = PointArray.from_points(points, comps)
+    arr = pa.arr.copy()
+    arr[pa.inf] = PointArray.from_points([gen], comps).arr[0]
+    words = np.concatenate([L.encode_mont_u64(arr[:, 4 * c:4 * c + 4], L.FQ)
+                            for c in range(comps)])
+    return L.to_tensor(words, dev), pa.inf
+
+
 def prepare_g1(points, device="cuda"):
     """Device-resident (16, n) pool of affine G1 points [X | Y] as Montgomery
-    words. Identity (None) points are stored as the generator and corrected
-    at msm_end, so the schedule does not depend on the pool."""
-    dev = resolve(device)
-    gen = G1.generator()
-    pts = [gen if p is None else p for p in points]
-    inf = np.array([p is None for p in points], dtype=bool)
-    words = np.concatenate([L.encode_mont([p[0] for p in pts], L.FQ),
-                            L.encode_mont([p[1] for p in pts], L.FQ)])
-    return (L.to_tensor(words, dev), inf, "g1")
+    words; `points` a list or a PointArray. Identity (None) points are stored
+    as the generator and corrected at msm_end, so the schedule does not
+    depend on the pool."""
+    return (*_prepare(points, 2, G1.generator(), device), "g1")
 
 
 def prepare_g2(points, device="cuda"):
     """(32, n) pool of affine G2 points [X.c0 | X.c1 | Y.c0 | Y.c1]."""
-    dev = resolve(device)
-    gen = G2.generator()
-    pts = [gen if p is None else p for p in points]
-    inf = np.array([p is None for p in points], dtype=bool)
-    words = np.concatenate([
-        L.encode_mont([p[c][k] for p in pts], L.FQ)
-        for c in (0, 1) for k in (0, 1)])
-    return (L.to_tensor(words, dev), inf, "g2")
+    return (*_prepare(points, 4, G2.generator(), device), "g2")
 
 
 def _inf_correction(digits: np.ndarray, inf) -> int:

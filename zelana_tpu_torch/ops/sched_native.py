@@ -1,46 +1,28 @@
 """ctypes binding for the native run-scan scheduler.
 
-The C++ source is the repo's ``csrc/scan_sched.cpp``; it is compiled with g++
-at first use into ``build/zelana_tpu_torch/libzelana_sched.so`` (a library
-newer than the source is reused). Without a C++ compiler this raises: the port
-has no numpy scheduler.
+The C++ source is the repo's ``csrc/scan_sched.cpp``, built by
+``zelana_tpu_torch.native`` into ``build/zelana_tpu_torch/libzelana_sched.so``.
+Without a C++ compiler this raises: the port has no numpy scheduler.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
+import functools
 
 import numpy as np
 
-from .cuda import BUILD, ROOT
-
-_SRC = os.path.join(ROOT, "csrc", "scan_sched.cpp")
-_LIB = os.path.join(BUILD, "libzelana_sched.so")
-_STATE: dict = {}
-_LOCK = threading.Lock()
+from .. import native
 
 
+@functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    with _LOCK:
-        if "lib" in _STATE:
-            return _STATE["lib"]
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            os.makedirs(BUILD, exist_ok=True)
-            tmp = f"{_LIB}.tmp{os.getpid()}"
-            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
-                           check=True, capture_output=True)
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.zelana_build_scan_schedule2.argtypes = [
-            p, i, i, i, i, i, i, i, i, p, p, p, p, i, p]
-        lib.zelana_build_scan_schedule2.restype = ctypes.c_int
-        _STATE["lib"] = lib
-        return lib
+    lib = native.load("scan_sched.cpp", "zelana_sched")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.zelana_build_scan_schedule2.argtypes = [
+        p, i, i, i, i, i, i, i, i, p, p, p, p, i, p]
+    lib.zelana_build_scan_schedule2.restype = ctypes.c_int
+    return lib
 
 
 def build_schedule_arrays2(digits: np.ndarray, nb: int, lanes: int, R: int,
