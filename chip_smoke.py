@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/H100 port of the Groth16 prover on one card.
+"""Smoke run of the PyTorch/H100 port of zelana-tpu on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --phases kernels,keygen   # a subset, no result
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: card name and power limit, CUDA and nvcc versions, and the
-     build of the five kernels from zelana_tpu_torch/csrc (one nvcc per
+     build of the nine kernels from zelana_tpu_torch/csrc (one nvcc per
      source, in parallel), with ptxas register and spill counts;
   2. `kernels`: each kernel against its plain PyTorch version on the card,
-     exact equality: mont_mul (2^16 Fr and Fq, with 0, 1 and p - 1), one
-     butterfly stage (n = 2^16), runscan in its four variants on a real
-     schedule over a 2^12-point pool, pairs_add (G1, G2) at 2^14, step (G1,
-     G2, general and mixed) at S = 2^14 by slot ids and by pairing, and the
-     five step rounds of one 32,768-scalar keygen chunk (G1, G2);
+     exact equality: mont_mul (2^16 Fr, Fq and BLS12-381 Fr, with 0, 1 and
+     p - 1), one butterfly stage (n = 2^16), runscan in its four variants
+     on a real schedule over a 2^12-point pool, pairs_add (G1, G2) at 2^14,
+     step (G1, G2, general and mixed) at S = 2^14 by slot ids and by
+     pairing, and the five step rounds of one 32,768-scalar keygen chunk
+     (G1, G2); mimc_permute at 2^14 (91 rounds, and 3 rounds of the JAX
+     test's constants); inv_fwd, inv_bwd and fermat at n = 2^16 and
+     n = 20,480 (a partial last tile), Fr and Fq, whole outputs compared;
+  `hashes`: hash2_batch at 2^20 leaves (one level of a 2^21-leaf account
+     tree), hash_n_batch with 3 and 5 columns at 2^16, Poseidon BN254 8/56
+     over two columns at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12; 256
+     sampled outputs of each equal to the host hashes; launches and times;
+  `inversion`: mont_batch_inv_nested over Fr at 2^20 and 20,480 and over
+     Fq at 2^20 with seeded zeros: the whole output equal to the plain
+     version on the card and a * inv == 1 (0 at the zeros) by the mont_mul
+     kernel; launches per call and times;
   3. `slice`: prove and prove_many over the L2 block circuit with
      artifacts/l2_dummy_pk.npz, every proof checked by verify, the
      batch_id = 1 proof byte-equal to the vector the JAX package recorded;
@@ -34,7 +45,8 @@ Phases (any failure exits non-zero and prints no result):
      per-chunk prove times, the idle share of one chunk prove under
      torch.profiler and the peak device memory;
   7. one JSON line of per-kernel numbers (launches: the prover's kernels
-     on the L2 slice, step on the production keygen), the card, the
+     on the L2 slice, step on the production keygen, mimc_permute on the
+     hashes, inv_fwd / inv_bwd / fermat on the inversions), the card, the
      result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -56,7 +68,9 @@ MUL_OPS = 2 * 2 * 8 * 8 + 8  # one 8x32-bit CIOS: 128 wide products, 8 m's
 CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
-PHASES = ("kernels", "slice", "keygen", "chunk", "production")
+PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
+          "production")
+SLICE_KERNELS = ("mont_mul", "butterfly", "runscan", "pairs_add")
 
 
 def log(*a):
@@ -112,6 +126,10 @@ def main() -> int:
     kernels, launches = [], {}
     if "kernels" in phases:
         kernels = phase_kernels(torch, dev, report)
+    if "hashes" in phases:
+        launches.update(phase_hashes(torch, dev, report))
+    if "inversion" in phases:
+        launches.update(phase_inversion(torch, dev, report))
     if "slice" in phases:
         launches.update(phase_slice(torch, dev, report))
     if "keygen" in phases:
@@ -231,6 +249,20 @@ def phase_kernels(torch, dev, report) -> list:
         ms += cuda_ms(torch, lambda: FK.mont_mul(a, b, spec), 20)
         plain += cuda_ms(torch, lambda: FK.mont_mul_plain(a, b, spec), 1,
                          False)
+    # BLS12-381 Fr (the privacy SDK's Poseidon field): checked, timed apart
+    spec = L.BLS_FR
+    a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+    b = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+    edge = L.to_tensor(L.to_words([0, 1, spec.modulus - 1]), dev)
+    a[:, :3] = b[:, 3:6] = b[:, 6:9] = a[:, 6:9] = edge
+    err = max(err, check("mont_mul BLS12-381 Fr", FK.mont_mul(a, b, spec),
+                         FK.mont_mul_plain(a, b, spec)))
+    bls_ms = cuda_ms(torch, lambda: FK.mont_mul(a, b, spec), 20)
+    bls_bound = bound_ms(n * 96, n * MUL_OPS)
+    log(f"  mont_mul BLS12-381 Fr 2^16: {bls_ms:.4f} ms, bound "
+        f"{bls_bound[0]:.4f} ms ({bls_bound[1]})")
+    report["mont_mul_bls12_381_2_16"] = {"ms": bls_ms,
+                                         "bound_ms": bls_bound[0]}
     bms, by = bound_ms(2 * n * 96, 2 * n * MUL_OPS)
     kernels.append(_entry("mont_mul", "zelana_tpu_torch/csrc/field_kernels.cu",
                           "zelana_tpu/ops/pallas_field.py:136", err, ms,
@@ -349,6 +381,8 @@ def phase_kernels(torch, dev, report) -> list:
                           st["ms"], st["plain"], st["bound_ms"],
                           st["bound_by"]))
     report["step_keygen_chunk"] = st
+    kernels += _mimc_kernel(torch, dev, rng, check)
+    kernels += _inversion_kernels(torch, dev, rng, check)
     for k in kernels:
         k["mismatches"] = mismatches[k["name"]]
         log(f"  {k['name']}: {k['ms']:.4f} ms kernel, {k['plain_ms']:.3f} ms "
@@ -424,11 +458,293 @@ def _step_keygen_chunk(torch, dev, rng, check) -> dict:
     return out
 
 
+def _mimc_kernel(torch, dev, rng, check) -> list:
+    """mimc_permute at 2^14 against its plain version: the 91 MiMC rounds,
+    and 3 rounds of the JAX test's constants; times of the 91 rounds."""
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.hashes import mimc_batch as MB
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    n = 1 << 14
+    x = rand_words(torch, rng, FR >> 224, n, dev)
+    x[:, :3] = L.to_tensor(L.to_words([0, 1, FR - 1]), dev)
+    rc91 = MB._round_constants(dev)
+    rc3 = L.to_tensor(L.encode_mont([7, 12345, 0xDEADBEEF], L.FR).T, dev)
+    err = 0
+    for rc in (rc91, rc3):
+        err = max(err, check(f"mimc_permute {rc.shape[0]} rounds",
+                             FK.mimc_permute(x, rc, L.FR),
+                             FK.mimc_permute_plain(x, rc, L.FR)))
+    ms = cuda_ms(torch, lambda: FK.mimc_permute(x, rc91, L.FR), 20)
+    plain = cuda_ms(torch, lambda: FK.mimc_permute_plain(x, rc91, L.FR), 1,
+                    False)
+    bms, by = bound_ms(n * 64 + rc91.numel() * 4,
+                       n * 4 * rc91.shape[0] * MUL_OPS)
+    return [_entry("mimc_permute", "zelana_tpu_torch/csrc/field_kernels.cu",
+                   "zelana_tpu/ops/pallas_field.py:378", err, ms, plain, bms,
+                   by)]
+
+
+def fermat_muls(modulus: int) -> int:
+    """Products of the left-to-right square-and-multiply for a^(p-2)."""
+    e = modulus - 2
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def inv_work(name: str, n: int, spec):
+    """(bytes moved, int32 operations) of one inversion kernel over n
+    elements: inv_fwd reads a and writes the prefixes and the chain totals
+    with one multiply per element, inv_bwd reads a, the prefixes and the
+    totals' inverses and writes the result with two, fermat reads and writes
+    each element with one square-and-multiply chain."""
+    from zelana_tpu_torch.ops import field_kernels as FK
+
+    if name == "fermat":
+        return 2 * n * 32, n * fermat_muls(spec.modulus) * MUL_OPS
+    chains = FK.inv_chains(n)
+    if name == "inv_fwd":
+        return (2 * n + chains) * 32, n * MUL_OPS
+    return (3 * n + chains) * 32, 2 * n * MUL_OPS
+
+
+def _inversion_kernels(torch, dev, rng, check) -> list:
+    """inv_fwd, inv_bwd and fermat against their plain versions at
+    n = 2^16 and n = 20,480 (one whole tile and a partial one of 4,096), Fr
+    and Fq, whole outputs compared; bwd and plain bwd get the same inputs.
+    Times: fwd and bwd at 2^16, fermat at its recursion-base shape (1,024
+    elements), each summed over Fr and Fq."""
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    err = {"inv_fwd": 0, "inv_bwd": 0, "fermat": 0}
+    t = {k: {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0} for k in err}
+    for spec, fname in ((L.FR, "Fr"), (L.FQ, "Fq")):
+        for n in (1 << 16, 20480):
+            a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+            pre, tot = FK.inv_fwd(a, spec)
+            ppre, ptot = FK.inv_fwd_plain(a, spec)
+            err["inv_fwd"] = max(err["inv_fwd"],
+                                 check(f"inv_fwd {fname} {n} prefix", pre,
+                                       ppre),
+                                 check(f"inv_fwd {fname} {n} totals", tot,
+                                       ptot))
+            tinv = FK.fermat(tot, spec)
+            err["fermat"] = max(err["fermat"], check(
+                f"fermat {fname} {tot.shape[1]}", tinv,
+                FK.fermat_plain(tot, spec)))
+            err["inv_bwd"] = max(err["inv_bwd"], check(
+                f"inv_bwd {fname} {n}", FK.inv_bwd(a, pre, tinv, spec),
+                FK.inv_bwd_plain(a, pre, tinv, spec)))
+            if n != 1 << 16:
+                continue
+            err["fermat"] = max(err["fermat"], check(
+                f"fermat {fname} {n}", FK.fermat(a, spec),
+                FK.fermat_plain(a, spec)))
+            base = a[:, :FK.INV_BLOCK].contiguous()
+            for name, fn, pfn, width in (
+                    ("inv_fwd", lambda: FK.inv_fwd(a, spec),
+                     lambda: FK.inv_fwd_plain(a, spec), n),
+                    ("inv_bwd", lambda: FK.inv_bwd(a, pre, tinv, spec),
+                     lambda: FK.inv_bwd_plain(a, pre, tinv, spec), n),
+                    ("fermat", lambda: FK.fermat(base, spec),
+                     lambda: FK.fermat_plain(base, spec), FK.INV_BLOCK)):
+                t[name]["ms"] += cuda_ms(torch, fn, 20)
+                t[name]["plain"] += cuda_ms(torch, pfn, 1, False)
+                nbytes, ops = inv_work(name, width, spec)
+                t[name]["bytes"] += nbytes
+                t[name]["ops"] += ops
+    out = []
+    for name, line in (("inv_fwd", 247), ("inv_bwd", 274), ("fermat", 228)):
+        bms, by = bound_ms(t[name]["bytes"], t[name]["ops"])
+        out.append(_entry(name, "zelana_tpu_torch/csrc/field_kernels.cu",
+                          f"zelana_tpu/ops/pallas_field.py:{line}",
+                          err[name], t[name]["ms"], t[name]["plain"], bms,
+                          by))
+    return out
+
+
 def _entry(name, source, replaces, err, ms, plain, bms, by) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# the batched hashes and the batch inversion at realistic sizes
+# ---------------------------------------------------------------------------
+
+
+def _sample_ints(torch, words, idx, spec):
+    from zelana_tpu_torch.ops import limbs as L
+
+    return L.decode_mont(L.to_numpy(words[:, idx]), spec)
+
+
+def phase_hashes(torch, dev, report) -> dict:
+    """Returns the kernel launches of the hashing path."""
+    import numpy as np
+
+    from zelana_tpu_torch.hashes import mimc as M
+    from zelana_tpu_torch.hashes import mimc_batch as MB
+    from zelana_tpu_torch.hashes import poseidon as P
+    from zelana_tpu_torch.hashes import poseidon_batch as PB
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    rng = np.random.default_rng(7)
+    rep = report["hashes"] = {}
+    fr_top = L.FR.modulus >> 224
+    n2 = 1 << 20
+    leaves = [rand_words(torch, rng, fr_top, n2, dev) for _ in range(2)]
+    cols5 = [rand_words(torch, rng, fr_top, 1 << 16, dev) for _ in range(5)]
+    pos = []
+    for name, cfg, n in (("poseidon bn254 8/56", P.bn254_config(), 1 << 15),
+                         ("poseidon bn254 8/57", P.bn254_config_57(), 1 << 12),
+                         ("poseidon bls12-381 8/57", P.bls12_381_config(),
+                          1 << 12)):
+        top = cfg.modulus >> 224
+        pos.append((name, cfg, [rand_words(torch, rng, top, n, dev)
+                                for _ in range(2)]))
+    runs = [("hash2_batch 2^20", lambda: MB.hash2_batch(*leaves), leaves,
+             L.FR, lambda r: M.hash_2(*r)),
+            ("hash_n_batch 3 cols 2^16", lambda: MB.hash_n_batch(cols5[:3]),
+             cols5[:3], L.FR, lambda r: M.hash_n(*r)),
+            ("hash_n_batch 5 cols 2^16", lambda: MB.hash_n_batch(cols5),
+             cols5, L.FR, lambda r: M.hash_n(*r))]
+    for name, cfg, cols in pos:
+        runs.append((f"{name} 2 cols {cols[0].shape[1]}",
+                     lambda cfg=cfg, cols=cols: PB.poseidon_hash_batch(
+                         cfg, cols),
+                     cols, L.FieldSpec(cfg.modulus),
+                     lambda r, cfg=cfg: P.poseidon_hash(cfg, list(r))))
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    outs, launches = [], {}
+    for name, fn, _, _, _ in runs:
+        before = dict(cuda.LAUNCHES)
+        t0 = time.time()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        launches[name] = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
+                          if v != before[k]}
+        rep[name] = {"first_call_s": time.time() - t0,
+                     "launches": launches[name]}
+    path = {"mimc_permute": cuda.LAUNCHES["mimc_permute"]}
+    log(f"launches on the hashing path: {dict(cuda.LAUNCHES)}")
+
+    for (name, fn, cols, spec, host), out in zip(runs, outs):
+        n = out.shape[1]
+        if tuple(out.shape) != (L.NWORDS, n):
+            raise AssertionError(f"{name}: output shape {tuple(out.shape)}")
+        idx = torch.from_numpy(rng.choice(n, 256, replace=False)).to(dev)
+        rows = list(zip(*(_sample_ints(torch, c, idx, spec) for c in cols)))
+        want = [host(r) for r in rows]
+        if _sample_ints(torch, out, idx, spec) != want:
+            raise AssertionError(f"{name}: sampled outputs differ from the "
+                                 f"host hash")
+        ms = cuda_ms(torch, fn, 3)
+        rep[name]["ms"] = ms
+        rep[name]["per_s"] = n / ms * 1e3
+        log(f"  {name}: {ms:.3f} ms on the card ({n / ms * 1e3:.4g} hashes/s),"
+            f" first call {rep[name]['first_call_s']:.2f} s, launches "
+            f"{launches[name]}; 256 samples equal to the host hash")
+    x = leaves[0]
+    rc = MB._round_constants(dev)
+    # the kernel against its plain version, whole outputs, at the path's
+    # widths and at one off the 256-thread block (its masked last block)
+    odd = leaves[1][:, :(1 << 16) + 77].contiguous()
+    for what, xs in (("2^20", x), ("2^16", cols5[0]), ("2^16 + 77", odd)):
+        mism, err = compare(torch, FK.mimc_permute(xs, rc, L.FR),
+                            FK.mimc_permute_plain(xs, rc, L.FR))
+        log(f"  mimc_permute {what}, 91 rounds, whole output against the "
+            f"plain version: mismatches {mism}, max |diff| {err}")
+        if mism:
+            raise AssertionError(f"mimc_permute {what}: {mism} columns "
+                                 f"differ from the plain version")
+    ms = cuda_ms(torch, lambda: FK.mimc_permute(x, rc, L.FR), 5)
+    bms, by = bound_ms(n2 * 64, n2 * 4 * rc.shape[0] * MUL_OPS)
+    rep["mimc_permute 2^20"] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+    log(f"  mimc_permute 2^20, 91 rounds: {ms:.3f} ms, bound {bms:.3f} ms "
+        f"({by})")
+    return path
+
+
+def phase_inversion(torch, dev, report) -> dict:
+    """Returns the kernel launches of one 2^20 Fr inversion."""
+    import numpy as np
+
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    rng = np.random.default_rng(11)
+    rep = report["inversion"] = {}
+    path = None
+    for spec, fname, n in ((L.FR, "Fr", 1 << 20), (L.FR, "Fr", 20480),
+                           (L.FQ, "Fq", 1 << 20)):
+        name = f"mont_batch_inv_nested {fname} {n}"
+        a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+        zeros = [0, n - 1, *rng.choice(np.arange(1, n - 1), 6,
+                                       replace=False).tolist()]
+        a[:, zeros] = 0
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.time()
+        inv = L.mont_batch_inv_nested(a, spec)
+        torch.cuda.synchronize()
+        first = time.time() - t0
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if path is None:
+            path = {k: cuda.LAUNCHES[k] for k in ("inv_fwd", "inv_bwd",
+                                                  "fermat")}
+        # the plain recursion on the same zero-swapped input (every n here
+        # is a multiple of 1,024: no padding)
+        one = L.broadcast(spec.one_mont, n, dev)
+        zero = L.is_zero(a)
+        plain = FK.batch_inv(L.select(zero, one, a), spec, plain=True)
+        mism, _ = compare(torch, inv,
+                          L.select(zero, torch.zeros_like(plain), plain))
+        prod = FK.mont_mul(a, inv, spec)
+        want = L.select(zero, torch.zeros_like(one), one)
+        bad = int((prod != want).any(dim=0).sum())
+        if mism or bad or int(zero.sum()) != len(zeros):
+            raise AssertionError(f"{name}: {mism} columns differ from the "
+                                 f"plain version, {bad} products a * inv "
+                                 f"wrong")
+        ms = cuda_ms(torch, lambda: L.mont_batch_inv_nested(a, spec), 5)
+        rep[name] = {"ms": ms, "first_call_s": first, "launches": launches}
+        log(f"  {name}: {ms:.3f} ms on the card (first call {first:.3f} s), "
+            f"launches {launches}; equal to the plain version, a * inv == 1 "
+            f"({len(zeros)} zeros kept)")
+        if n == 1 << 20 and spec is L.FR:
+            _inversion_levels(torch, a, spec, rep)
+    return path
+
+
+def _inversion_levels(torch, a, spec, rep) -> None:
+    """Times of the first level's inv_fwd / inv_bwd at 2^20 and of the
+    fermat base (1,024 elements) beside their bounds."""
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    n = a.shape[1]
+    safe = L.select(L.is_zero(a), L.broadcast(spec.one_mont, n, a.device), a)
+    pre, tot = FK.inv_fwd(safe, spec)
+    tinv = L.mont_batch_inv_nested(tot, spec)
+    base = tot[:, :FK.INV_BLOCK].contiguous()
+    for name, fn, width in (
+            ("inv_fwd", lambda: FK.inv_fwd(safe, spec), n),
+            ("inv_bwd", lambda: FK.inv_bwd(safe, pre, tinv, spec), n),
+            ("fermat", lambda: FK.fermat(base, spec), FK.INV_BLOCK)):
+        ms = cuda_ms(torch, fn, 20)
+        bms, by = bound_ms(*inv_work(name, width, spec))
+        key = f"{name} {width}"
+        rep[key] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        log(f"    {key}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 # ---------------------------------------------------------------------------
@@ -476,8 +792,7 @@ def phase_slice(torch, dev, report) -> dict:
     many = prove_many(pk, [(circuit, b) for b in (2, 3, 4, 5)])
     torch.cuda.synchronize()
     t2 = time.time()
-    # step is keygen's kernel, not the prover's (production phase)
-    launches = {k: v for k, v in cuda.LAUNCHES.items() if k != "step"}
+    launches = {k: cuda.LAUNCHES[k] for k in SLICE_KERNELS}
     log(f"launches on the slice: {launches}")
 
     proofs = [first] + many

@@ -16,8 +16,8 @@ from zelana_tpu_torch.fields.bn254 import P, R
 from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as TL
 
-SPECS = [(JL.FQ, TL.FQ), (JL.FR, TL.FR)]
-IDS = ["Fq", "Fr"]
+SPECS = [(JL.FQ, TL.FQ), (JL.FR, TL.FR), (JL.BLS_FR, TL.BLS_FR)]
+IDS = ["Fq", "Fr", "BLS12-381 Fr"]
 
 
 def _values(seed: int, n: int, modulus: int) -> list:
@@ -93,6 +93,14 @@ def test_wrappers_raise_off_cpu_without_cuda():
         FK.mont_mul(meta, meta, TL.FR)
     with pytest.raises(ValueError):
         FK.butterfly(meta, meta, meta, TL.FR)
+    with pytest.raises(ValueError):
+        FK.mimc_permute(meta, meta[:, :3].T, TL.FR)
+    with pytest.raises(ValueError):
+        FK.inv_fwd(meta[:, :1].expand(8, 1024), TL.FR)
+    with pytest.raises(ValueError):
+        FK.inv_bwd(meta, meta, meta, TL.FR)
+    with pytest.raises(ValueError):
+        FK.fermat(meta, TL.FR)
 
 
 def _cuh_arrays(name: str) -> list:
@@ -105,16 +113,22 @@ def _cuh_arrays(name: str) -> list:
 
 
 def test_cuda_constants_match():
-    """The constants compiled into csrc/field.cuh are the BN254 ones."""
+    """The constants compiled into csrc/field.cuh are those of BN254 Fq and
+    Fr and BLS12-381 Fr, in the order of field_kernels._FIELD_ID."""
     from zelana_tpu_torch.fields import tower as tw
 
     def words(x):
         return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
 
-    assert _cuh_arrays("kP") == words(P) + words(R)
+    mods = sorted(FK._FIELD_ID, key=FK._FIELD_ID.get)
+    assert mods == [P, R, TL.BLS_FR.modulus]
+    assert _cuh_arrays("kP") == sum((words(m) for m in mods), [])
     assert _cuh_arrays("kN0") == [(-pow(m, -1, 1 << 32)) % (1 << 32)
-                                  for m in (P, R)]
-    assert _cuh_arrays("kOneQ") == words((1 << 256) % P)
+                                  for m in mods]
+    assert _cuh_arrays("kOne") == sum((words((1 << 256) % m) for m in mods),
+                                      [])
+    assert _cuh_arrays("kOne") == sum(
+        (TL.FieldSpec(m).one_mont.tolist() for m in mods), [])
     inv = tw.fq2_inv((9, 1))
     b3 = [9 * c % P * (1 << 256) % P for c in inv]
     assert _cuh_arrays("kB3G2") == words(b3[0]) + words(b3[1])

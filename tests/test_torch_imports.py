@@ -116,11 +116,16 @@ def test_default_device_raises_without_cuda(cubic_key):
     from zelana_tpu_torch.ops import fixed_base
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
 
+    from zelana_tpu_torch.hashes import mimc_batch, poseidon_batch
+    from zelana_tpu_torch.hashes.poseidon import bn254_config
+
     for call in (lambda: keygen(object()),
                  lambda: keygen_synthesized(object()),
                  lambda: prove_synthesized(pk, object()),
                  lambda: fixed_base.prepare_table_g1(g1.generator()),
                  lambda: Groth16ChunkProver(pk, (1, 0, 1), 1),
-                 lambda: Groth16ChunkProver.setup((0, 0, 0), 1)):
+                 lambda: Groth16ChunkProver.setup((0, 0, 0), 1),
+                 lambda: mimc_batch.hash2_many([(1, 2)]),
+                 lambda: poseidon_batch.hash_many(bn254_config(), [(1, 2)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -1,6 +1,6 @@
-// Shared device arithmetic of the port's kernels: BN254 Fq and Fr in
-// Montgomery form (R = 2^256) as 8 little-endian 32-bit words, the Fq2 tower
-// and the complete projective additions of G1 and G2.
+// Shared device arithmetic of the port's kernels: BN254 Fq and Fr and
+// BLS12-381 Fr in Montgomery form (R = 2^256) as 8 little-endian 32-bit
+// words, the Fq2 tower and the complete projective additions of G1 and G2.
 //
 // Replaces the TPU kernels' shared helpers: pallas_field._sos_mul_fn (an
 // 8-bit f32 column-SOS, a TPU workaround for the missing widening multiply)
@@ -21,19 +21,29 @@
 typedef uint32_t u32;
 typedef uint64_t u64;
 
-// field index: 0 = Fq (base field), 1 = Fr (scalar field)
-__constant__ u32 kP[2][8] = {
+// field index: 0 = BN254 Fq (base field), 1 = BN254 Fr (scalar field),
+// 2 = BLS12-381 Fr (the privacy SDK's Poseidon field). Every modulus is below
+// 2^255, so the sum of two canonical elements never carries out of 256 bits
+// and the CIOS product stays below 2p < 2^256.
+__constant__ u32 kP[3][8] = {
     {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
      0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
     {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
      0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
+     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u},
 };
 // -p^-1 mod 2^32
-__constant__ u32 kN0[2] = {0xe4866389u, 0xefffffffu};
-// 2^256 mod q: one in Montgomery form over Fq
-__constant__ u32 kOneQ[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
-                             0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
-                             0x9a07df2fu, 0x0e0a77c1u};
+__constant__ u32 kN0[3] = {0xe4866389u, 0xefffffffu, 0xffffffffu};
+// 2^256 mod p: one in Montgomery form
+__constant__ u32 kOne[3][8] = {
+    {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+     0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+     0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+     0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u},
+};
 // 3b = 9 of G1, Montgomery form over Fq
 __constant__ u32 kB3Q[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u,
                             0x2f3d6f4du, 0x3940c6d1u, 0x2943337eu,
@@ -52,6 +62,14 @@ struct Fp {
 };
 typedef Fp<0> Fq;
 typedef Fp<1> Fr;
+
+template <int F>
+__device__ __forceinline__ Fp<F> one() {
+    Fp<F> r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = kOne[F][j];
+    return r;
+}
 
 struct Fq2 {
     Fq c0, c1;
@@ -312,12 +330,7 @@ struct Coord<Fq> {
         for (int j = 0; j < 8; ++j) r.w[j] = 0;
         return r;
     }
-    static __device__ __forceinline__ Fq one() {
-        Fq r;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) r.w[j] = kOneQ[j];
-        return r;
-    }
+    static __device__ __forceinline__ Fq one() { return ::one<0>(); }
 };
 
 template <>

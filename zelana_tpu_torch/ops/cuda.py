@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "pairs_add": 0,
-            "step": 0}
+            "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
+            "fermat": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -109,6 +110,10 @@ def _declare(cdll) -> None:
         "zt_runscan": [i, i, p, p, p, i, i, p],
         "zt_pairs_add": [i, p, p, p, l, p],
         "zt_step": [i, i, p, p, p, l, l, l, l, p],
+        "zt_mimc_permute": [p, p, p, l, i, p],
+        "zt_inv_fwd": [i, p, p, p, l, p],
+        "zt_inv_bwd": [i, p, p, p, p, l, p],
+        "zt_fermat": [i, p, p, l, p],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

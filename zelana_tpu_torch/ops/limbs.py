@@ -1,5 +1,5 @@
-"""BN254 field layer of the port: packed 32-bit words on the device, 16-bit
-limbs in int64 for the plain versions.
+"""Field layer of the port (BN254 Fq and Fr, BLS12-381 Fr): packed 32-bit
+words on the device, 16-bit limbs in int64 for the plain versions.
 
 Layout. A batch of field elements is an ``(8, N)`` ``torch.int32`` tensor,
 words first: word k of element j holds bits [32k, 32k + 32) of its
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..fields.bn254 import P as _P, R as _R
+from ..hashes.poseidon import BLS12_381_FR as _BLS_R
 
 NWORDS = 8
 NLIMBS = 16
@@ -53,12 +54,18 @@ class FieldSpec:
         """-p^{-1} mod 2^16."""
         return (-pow(self.modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
 
+    @functools.cached_property
+    def one_mont(self) -> np.ndarray:
+        """(8,) uint32 words of one in Montgomery form, 2^256 mod p."""
+        return to_words([MONT_R % self.modulus])[:, 0]
+
     def __hash__(self):
         return hash(self.modulus)
 
 
 FQ = FieldSpec(_P)
 FR = FieldSpec(_R)
+BLS_FR = FieldSpec(_BLS_R)
 
 
 # ---------------------------------------------------------------------------
@@ -242,3 +249,53 @@ def add(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 
 def sub(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return pack(sub_l(unpack(a), unpack(b), spec))
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(8, *B) words -> (*B) bool, True where the element is zero."""
+    return (a == 0).all(dim=0)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """mask over the batch dims; a where True, else b."""
+    return torch.where(mask[None], a, b)
+
+
+# ---------------------------------------------------------------------------
+# inversion
+# ---------------------------------------------------------------------------
+
+
+def mont_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """a^(p-2) of each element of (8, N) words; inv(0) = 0. On the card this
+    is the fermat kernel."""
+    from . import field_kernels as FK
+
+    return FK.fermat(a, spec)
+
+
+def mont_batch_inv_nested(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Inverses of (8, N) Montgomery words, any N >= 1; zeros pass through
+    as zero.
+
+    Montgomery's trick over chains of 16 (``field_kernels.batch_inv``): the
+    zeros are swapped for one, N is padded with one to a multiple of 1,024,
+    and the kernels run on CUDA tensors, their plain versions on CPU
+    tensors. The JAX package's
+    ``mont_batch_inv`` and ``mont_batch_inv_logdepth`` compute the same
+    function by other algorithms; here both names are this function."""
+    from . import field_kernels as FK
+
+    n = a.shape[1]
+    zero = is_zero(a)
+    one = to_tensor(spec.one_mont.reshape(NWORDS, 1), a.device)
+    safe = select(zero, one, a)
+    pad = -n % FK.INV_BLOCK
+    if pad:
+        safe = torch.cat([safe, one.expand(NWORDS, pad)], dim=1)
+    out = FK.batch_inv(safe, spec)[:, :n]
+    return select(zero, torch.zeros_like(out), out)
+
+
+mont_batch_inv = mont_batch_inv_nested
+mont_batch_inv_logdepth = mont_batch_inv_nested
