@@ -37,13 +37,18 @@ Phases (any failure exits non-zero and prints no result):
      prove_synthesized equal to the DSL prove on that chunk;
   5. `chunk`: the witness map at 2^21 against its plain version on the
      card, and G1 / G2 MSMs at chunk size against their closed form (pools
-     of synthetic points); kernel times at these shapes beside their bound;
+     of synthetic points); on one full 2^16-point segment of each curve the
+     lane sweep (the whole segment's device time per level-1 lane count and
+     level-2 cap), the kernel times at the earlier shapes (8,192 / 2,048
+     lanes, 1,024 level-2 lanes) and at the chosen ones beside their bound,
+     and the chosen level-1 pass against its plain version on the card;
   6. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
      production key (1,129,391 variables, 2^21 domain) with the step
      kernel, then prove_chunks proves a batch that fills two chunks; both
      proofs pass verify_chunk and their roots chain. Phase times of keygen,
-     per-chunk prove times, the idle share of one chunk prove under
-     torch.profiler and the peak device memory;
+     per-chunk prove times, the run-scan device time, busy time and idle
+     share of one chunk prove under torch.profiler, the peak device memory,
+     and R, R2 and K2 of the chunk's z schedules;
   7. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen, mimc_permute on the
      hashes, inv_fwd / inv_bwd / fermat on the inversions), the card, the
@@ -195,6 +200,21 @@ def bound_ms(nbytes: float, ops: float):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
+RUNSCAN_MULS = {("g1", False): 11, ("g1", True): 12, ("g2", False): 39,
+                ("g2", True): 42}  # Montgomery products per stream add
+
+
+def runscan_work(torch, pool, ids, flags, curve, proj_in):
+    """(bytes, int32 operations) of one run-scan: the pool columns the ids
+    name, read once, the ids and flags, the emit written; one stream add
+    per row without a flag."""
+    C = 24 if curve == "g1" else 48
+    uniq = int(torch.unique(ids).numel())
+    nbytes = 4 * (pool.shape[0] * uniq + 2 * flags.numel() + C * flags.numel())
+    adds = int((flags == 0).sum())
+    return nbytes, adds * RUNSCAN_MULS[(curve, proj_in)] * MUL_OPS
+
+
 def rand_words(torch, rng, modulus_top: int, n: int, dev):
     """(8, n) int32 words of random canonical values (top word below the
     modulus's top word, so every value is < p)."""
@@ -299,33 +319,28 @@ def phase_kernels(torch, dev, report) -> list:
             pts.append(acc)
             acc = G.add(acc, gen)
         prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(pts, dev)
-        lanes = MSM.LANES if curve == "g1" else MSM.LANES_G2
-        d = MSM._upload(MSM.build_schedule(digits, lanes), dev)
+        d = MSM._upload(MSM.build_schedule(digits), dev)
         pool = prep[0]
         C = CK.rows(curve)
-        rows1, lanes1 = d["flag"].shape
-        vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1,
-                                                   lanes1)
-        emit = CK.runscan(vals, d["flag"], curve)
-        rs_err = max(rs_err, check(f"runscan {curve} affine", emit,
-                                   CK.runscan_plain(vals, d["flag"], curve)))
-        rows2, lanes2 = d["flag2"].shape
-        vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(
-            C, rows2, lanes2)
-        emit2 = CK.runscan(vals2, d["flag2"], curve, proj_in=True)
+        emit = CK.runscan(pool, d["pid"], d["flag"], curve)
+        rs_err = max(rs_err, check(
+            f"runscan {curve} affine", emit,
+            CK.runscan_plain(pool, d["pid"], d["flag"], curve)))
+        pool2 = emit.view(C, -1)
+        emit2 = CK.runscan(pool2, d["pos2"], d["flag2"], curve, proj_in=True)
         rs_err = max(rs_err, check(
             f"runscan {curve} projective", emit2,
-            CK.runscan_plain(vals2, d["flag2"], curve, proj_in=True)))
-        for v, f, proj in ((vals, d["flag"], False),
-                           (vals2, d["flag2"], True)):
-            rs["ms"] += cuda_ms(torch, lambda: CK.runscan(v, f, curve, proj))
-            rs["plain"] += cuda_ms(
-                torch, lambda: CK.runscan_plain(v, f, curve, proj), 1, False)
-            adds = int((f == 0).sum())
-            per_add = {("g1", False): 11, ("g1", True): 12,
-                       ("g2", False): 39, ("g2", True): 42}[(curve, proj)]
-            rs["bytes"] += f.numel() * 4 * (v.shape[0] + 1 + C)
-            rs["ops"] += adds * per_add * MUL_OPS
+            CK.runscan_plain(pool2, d["pos2"], d["flag2"], curve,
+                             proj_in=True)))
+        for src_pool, ids, f, proj in ((pool, d["pid"], d["flag"], False),
+                                       (pool2, d["pos2"], d["flag2"], True)):
+            rs["ms"] += cuda_ms(torch, lambda: CK.runscan(src_pool, ids, f,
+                                                          curve, proj))
+            rs["plain"] += cuda_ms(torch, lambda: CK.runscan_plain(
+                src_pool, ids, f, curve, proj), 1, False)
+            nbytes, ops = runscan_work(torch, src_pool, ids, f, curve, proj)
+            rs["bytes"] += nbytes
+            rs["ops"] += ops
         flat = emit.view(C, -1)
         k = 1 << 14
         A = flat[:, :k].contiguous()
@@ -1001,8 +1016,7 @@ def phase_chunk(torch, dev, report) -> None:
         want = G.mul(gen, _tiled_scalar(limbs, tile) % FR)
         t0 = time.time()
         digits = MSM.scalar_digits(limbs)
-        segs = MSM.build_segment_schedules(
-            digits, MSM.LANES if curve == "g1" else MSM.LANES_G2)
+        segs = MSM.build_segment_schedules(digits)
         MSM.upload_segment_schedules(segs, dev)
         torch.cuda.synchronize()
         t1 = time.time()
@@ -1017,45 +1031,98 @@ def phase_chunk(torch, dev, report) -> None:
         report[f"msm_{curve}_{n}_ms"] = 1e3 * (t2 - t1)
         report[f"msm_{curve}_{n}_sched_ms"] = 1e3 * (t1 - t0)
         if n == CHUNK_CONSTRAINTS:
-            _segment_kernels(torch, pool, segs[0], curve, report)
+            seg = slice(0, MSM.CHUNK_N)
+            _segment_study(torch, pool[:, seg], digits[:, seg], curve, report)
         del pool, segs
 
 
-def _segment_kernels(torch, pool, seg, curve, report) -> None:
-    """Kernel times on one full 2^16-point segment of a chunk-size MSM."""
+# the earlier stream shape (the JAX package's level-1 lanes, with 1,024
+# level-2 lanes), timed beside the chosen one
+OLD_LANES = {"g1": 8192, "g2": 2048}
+SWEEP_LANES = (8192, 16384, 32768, 65536)
+SWEEP_LANES2 = (1024, 2048, 4096, 8192)  # level-2 caps
+
+
+def _segment_study(torch, pool, digits, curve, report) -> None:
+    """One full 2^16-point segment of a chunk-size MSM: the lane sweep
+    (whole-segment time of _device_msm per level-1 lane count and level-2
+    cap), the kernel times at the earlier shapes and at the chosen ones, and
+    the chosen level-1 pass against the plain version on the card."""
     from zelana_tpu_torch.ops import curve_kernels as CK
     from zelana_tpu_torch.ops import msm_scan as MSM
 
-    d = seg["dev"]
+    dev = pool.device
+    rep = report.setdefault("lane_sweep", {})[curve] = []
+    for lanes in SWEEP_LANES:
+        parts = MSM._bucket_partials(
+            digits, MSM.level1_shape(digits.size, lanes)[1])
+        for cap in SWEEP_LANES2:
+            s = MSM.build_schedule(digits, lanes,
+                                   MSM.level2_lanes(parts, cap))
+            d = MSM._upload(s, dev)
+            seg_ms = cuda_ms(torch, lambda: MSM._device_msm(pool, d, curve),
+                             10)
+            l1_ms = cuda_ms(torch, lambda: CK.runscan(pool, d["pid"],
+                                                      d["flag"], curve), 10)
+            row = {"lanes": lanes, "cap2": cap, "R": s.pid.shape[0] - 1,
+                   "lanes2": s.pos2.shape[1], "R2": s.pos2.shape[0] - 1,
+                   "K2": s.dense_idx.shape[0], "level1_ms": l1_ms,
+                   "segment_ms": seg_ms}
+            rep.append(row)
+            log(f"  sweep {curve}: lanes {lanes} (R {row['R']}), level-2 cap "
+                f"{cap} -> lanes2 {row['lanes2']} (R2 {row['R2']}, K2 "
+                f"{row['K2']}): level 1 {l1_ms:.3f} ms, segment "
+                f"{seg_ms:.3f} ms")
+            del d
+    earlier = MSM._upload(
+        MSM.build_schedule(digits, OLD_LANES[curve], 1024), dev)
+    d = MSM._upload(MSM.build_schedule(digits), dev)
+    for tag, sched in (("earlier shape", earlier), ("chosen shape", d),
+                       ("earlier shape, again", earlier)):
+        _segment_kernels(torch, pool, sched, curve, report, tag)
+    mism, err = compare(torch, CK.runscan(pool, d["pid"], d["flag"], curve),
+                        CK.runscan_plain(pool, d["pid"], d["flag"], curve))
+    log(f"  runscan {curve} level 1, full segment at the chosen shape "
+        f"{tuple(d['flag'].shape)}, against the plain version: mismatches "
+        f"{mism}, max |diff| {err}")
+    if mism:
+        raise AssertionError(f"runscan {curve}: the full segment differs from "
+                             f"the plain version")
+
+
+def _segment_kernels(torch, pool, d, curve, report, tag) -> None:
+    """Kernel times on one full 2^16-point segment beside their bounds."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
     C = CK.rows(curve)
     rows1, lanes1 = d["flag"].shape
-    vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1, lanes1)
-    emit = CK.runscan(vals, d["flag"], curve)
     rows2, lanes2 = d["flag2"].shape
-    vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(C, rows2, lanes2)
-    per = (11, 12) if curve == "g1" else (39, 42)
-    k = MSM.SCAN_BITS * MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS // 4
-    A = emit.view(C, -1)[:, :k].contiguous()
-    B = emit.view(C, -1)[:, k:2 * k].contiguous()
-    for name, fn, nbytes, ops in (
+    emit = CK.runscan(pool, d["pid"], d["flag"], curve)
+    pool2 = emit.view(C, -1)
+    k = min(MSM.SCAN_BITS * MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS // 4,
+            pool2.shape[1] // 2)
+    A = pool2[:, :k].contiguous()
+    B = pool2[:, k:2 * k].contiguous()
+    K2 = d["dense"].numel() // (MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS)
+    for name, fn, work in (
             (f"runscan {curve} level 1 ({rows1} x {lanes1})",
-             lambda: CK.runscan(vals, d["flag"], curve),
-             d["flag"].numel() * 4 * (vals.shape[0] + 1 + C),
-             int((d["flag"] == 0).sum()) * per[0] * MUL_OPS),
+             lambda: CK.runscan(pool, d["pid"], d["flag"], curve),
+             runscan_work(torch, pool, d["pid"], d["flag"], curve, False)),
             (f"runscan {curve} level 2 ({rows2} x {lanes2})",
-             lambda: CK.runscan(vals2, d["flag2"], curve, True),
-             d["flag2"].numel() * 4 * (2 * C + 1),
-             int((d["flag2"] == 0).sum()) * per[1] * MUL_OPS),
+             lambda: CK.runscan(pool2, d["pos2"], d["flag2"], curve, True),
+             runscan_work(torch, pool2, d["pos2"], d["flag2"], curve, True)),
             (f"pairs_add {curve} ({k})", lambda: CK.pairs_add(A, B, curve),
-             3 * C * 4 * k, k * (12 if curve == "g1" else 42) * MUL_OPS),
-            (f"segment {curve} (gathers, 2 scans, merge, tree)",
-             lambda: MSM._device_msm(pool[:, :1 << 16], d, curve), 0, 0)):
+             (3 * C * 4 * k, k * (12 if curve == "g1" else 42) * MUL_OPS)),
+            (f"segment {curve} (2 scans, {K2}-layer merge, tree)",
+             lambda: MSM._device_msm(pool, d, curve), None)):
         ms = cuda_ms(torch, fn, 3)
-        report[name] = {"ms": ms}
-        if nbytes:
-            bms, by = bound_ms(nbytes, ops)
-            report[name].update(bound_ms=bms, bound_by=by)
-        log(f"  {name}: {report[name]}")
+        key = f"{name}, {tag}"
+        report[key] = {"ms": ms}
+        if work:
+            bms, by = bound_ms(*work)
+            report[key].update(bound_ms=bms, bound_by=by)
+        log(f"  {key}: {report[key]}")
 
 
 def _tiled_scalar(limbs, tile: int) -> int:
@@ -1188,12 +1255,39 @@ def phase_production(torch, report) -> dict:
     if again.proof_bytes != cps[0].proof_bytes:
         raise AssertionError("prove_chunk and prove_chunks differ on chunk 0")
     busy = _device_busy_ms(prof, "chunk prove")
+    scan = sum(e.self_device_time_total for e in prof.key_averages()
+               if "runscan_kernel" in e.key) / 1e3
     rep.update(profiled_wall_ms=wall, device_busy_ms=busy,
-               idle_share=1 - busy / wall, prove_phases=phases)
+               idle_share=1 - busy / wall, prove_phases=phases,
+               runscan_device_ms=scan)
     log(f"chunk prove under the profiler: {wall:.1f} ms wall, device busy "
-        f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}; equal to the "
-        f"pipelined proof")
+        f"{busy:.1f} ms (run-scan {scan:.1f} ms), idle share "
+        f"{1 - busy / wall:.4f}; equal to the pipelined proof")
+    _z_schedules(prover, chunks[0], rep)
     return launches
+
+
+def _z_schedules(prover, chunk, rep) -> None:
+    """R, R2 and K2 of the z schedules of one production chunk (the a, b1,
+    l and b2 MSMs): the witness vector's digits are far from uniform."""
+    from collections import Counter
+
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.r1cs.native_synth import synthesize_chunk
+
+    z = synthesize_chunk(prover.build_circuit(chunk, 7)).z
+    segs = MSM.build_segment_schedules(MSM.scalar_digits(z))
+    shapes = Counter(
+        (s["sched"].pid.shape[0] - 1, s["sched"].pid.shape[1],
+         s["sched"].pos2.shape[0] - 1, s["sched"].pos2.shape[1],
+         s["sched"].dense_idx.shape[0]) for s in segs)
+    rep["z_schedules"] = [dict(zip(("R", "lanes", "R2", "lanes2", "K2",
+                                    "segments"), (*k, v)))
+                          for k, v in sorted(shapes.items())]
+    log(f"z schedules of one chunk ({len(segs)} segments), R x lanes, "
+        f"R2 x lanes2, K2: " + "; ".join(
+            f"{v} x ({R} x {l}, {R2} x {l2}, K2 {K2})"
+            for (R, l, R2, l2, K2), v in sorted(shapes.items())))
 
 
 def _device_busy_ms(prof, what: str) -> float:

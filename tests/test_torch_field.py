@@ -132,3 +132,160 @@ def test_cuda_constants_match():
     inv = tw.fq2_inv((9, 1))
     b3 = [9 * c % P * (1 << 256) % P for c in inv]
     assert _cuh_arrays("kB3G2") == words(b3[0]) + words(b3[1])
+
+
+class _Ptx:
+    """field.cuh's carry-chain primitives over uint64 arrays that hold
+    32-bit words, one lane per element; `cf` is the carry flag (CC.CF). An
+    instruction without .cc that would carry out asserts instead."""
+
+    M = np.uint64(0xFFFFFFFF)
+    S = np.uint64(32)
+
+    def __init__(self, n):
+        self.cf = np.zeros(n, np.uint64)
+
+    def _cc(self, s):
+        self.cf = s >> self.S
+        return s & self.M
+
+    def _nc(self, s):
+        assert not (s >> self.S).any(), "carry lost"
+        return s & self.M
+
+    def add_cc(self, a, b):
+        return self._cc(a + b)
+
+    def addc_cc(self, a, b):
+        return self._cc(a + b + self.cf)
+
+    def addc(self, a, b):
+        return self._nc(a + b + self.cf)
+
+    def _borrow(self, a, t):
+        self.cf = (a < t).astype(np.uint64)
+        return (a - t) & self.M
+
+    def sub_cc(self, a, b):
+        return self._borrow(a, b)
+
+    def subc_cc(self, a, b):
+        return self._borrow(a, b + self.cf)
+
+    def subc(self, a, b):
+        return (a - b - self.cf) & self.M
+
+    def mad_lo_cc(self, a, b, c):
+        return self._cc(((a * b) & self.M) + c)
+
+    def madc_lo_cc(self, a, b, c):
+        return self._cc(((a * b) & self.M) + c + self.cf)
+
+    def madc_hi_cc(self, a, b, c):
+        return self._cc(((a * b) >> self.S) + c + self.cf)
+
+    def madc_hi(self, a, b, c):
+        return self._nc(((a * b) >> self.S) + c + self.cf)
+
+
+def _cuh_mul(x, a, b, p, n0):
+    """field.cuh's mul<F>, statement for statement. a, b, p: 8 word arrays
+    (p broadcast); returns the 8 words of a * b * 2^-256 mod p."""
+    M = _Ptx.M
+
+    def mul_n(acc, a, bi):
+        for j in range(0, 8, 2):
+            acc[j] = (a[j] * bi) & M
+            acc[j + 1] = (a[j] * bi) >> _Ptx.S
+
+    def cmad_n(acc, a, bi):
+        acc[0] = x.mad_lo_cc(a[0], bi, acc[0])
+        acc[1] = x.madc_hi_cc(a[0], bi, acc[1])
+        for j in range(2, 8, 2):
+            acc[j] = x.madc_lo_cc(a[j], bi, acc[j])
+            acc[j + 1] = x.madc_hi_cc(a[j], bi, acc[j + 1])
+
+    def madc_n_rshift(acc, a, bi):
+        zero = np.zeros_like(bi)
+        for j in range(0, 6, 2):
+            acc[j] = x.madc_lo_cc(a[j], bi, acc[j + 2])
+            acc[j + 1] = x.madc_hi_cc(a[j], bi, acc[j + 3])
+        acc[6] = x.madc_lo_cc(a[6], bi, zero)
+        acc[7] = x.madc_hi(a[6], bi, zero)
+
+    def mad_n_redc(ev, od, bi, first):
+        zero = np.zeros_like(bi)
+        if first:
+            mul_n(od, a[1:], bi)
+            mul_n(ev, a, bi)
+        else:
+            ev[0] = x.add_cc(ev[0], od[1])
+            madc_n_rshift(od, a[1:], bi)
+            cmad_n(ev, a, bi)
+            od[7] = x.addc(od[7], zero)
+        m = (ev[0] * n0) & M
+        cmad_n(od, p[1:], m)
+        assert not x.cf.any(), "carry out of O's top word"
+        cmad_n(ev, p, m)
+        od[7] = x.addc(od[7], zero)
+        assert not ev[0].any()
+
+    ev, od = [None] * 8, [None] * 8
+    for i in range(0, 8, 2):
+        mad_n_redc(ev, od, b[i], i == 0)
+        mad_n_redc(od, ev, b[i + 1], False)
+    r = [x.add_cc(ev[0], od[1])]
+    r += [x.addc_cc(ev[j], od[j + 1]) for j in range(1, 7)]
+    r.append(x.addc(ev[7], np.zeros_like(ev[7])))
+    return _cuh_csub(x, r, p)
+
+
+def _cuh_csub(x, r, p):
+    """sub256(d, r, p) and the select `bo ? r : d`."""
+    d = [x.sub_cc(r[0], p[0])] + [x.subc_cc(r[j], p[j]) for j in range(1, 8)]
+    bo = x.subc(np.zeros_like(r[0]), np.zeros_like(r[0])) != 0
+    return [np.where(bo, r[j], d[j]) for j in range(8)]
+
+
+def _cuh_add_sub(x, a, b, p):
+    """field.cuh's add<F> and sub<F> over add256 / sub256."""
+    z = np.zeros_like(a[0])
+    s = [x.add_cc(a[0], b[0])] + [x.addc_cc(a[j], b[j]) for j in range(1, 8)]
+    c = x.addc(z, z) != 0
+    d = [x.sub_cc(s[0], p[0])] + [x.subc_cc(s[j], p[j]) for j in range(1, 8)]
+    bo = x.subc(z, z) != 0
+    add = [np.where(c | ~bo, d[j], s[j]) for j in range(8)]
+    d = [x.sub_cc(a[0], b[0])] + [x.subc_cc(a[j], b[j]) for j in range(1, 8)]
+    bo = x.subc(z, z) != 0
+    t = [x.add_cc(d[0], p[0])] + [x.addc_cc(d[j], p[j]) for j in range(1, 8)]
+    x.addc(z, z)
+    return add, [np.where(bo, t[j], d[j]) for j in range(8)]
+
+
+@pytest.mark.parametrize("modulus", [P, R, TL.BLS_FR.modulus], ids=IDS)
+def test_cuda_mul_chain_model(modulus):
+    """The carry chains of csrc/field.cuh, run flag for flag in numpy: 20,000
+    random products and every pair of the edges (0, 1, p - 1, p - 2, one in
+    Montgomery form) against a * b * 2^-256 mod p; add and sub against
+    (a +- b) mod p. No carry the chains drop is ever set."""
+    edges = [0, 1, modulus - 1, modulus - 2, (1 << 256) % modulus]
+    av = _values(5, 20_000, modulus) + [e for e in edges for _ in edges]
+    bv = _values(6, 20_000, modulus) + [e for _ in edges for e in edges]
+
+    def words(vals):
+        return [np.array([(v >> (32 * j)) & 0xFFFFFFFF for v in vals],
+                         np.uint64) for j in range(8)]
+
+    def ints(ws):
+        return [sum(int(ws[j][i]) << (32 * j) for j in range(8))
+                for i in range(len(ws[0]))]
+
+    a, b, p = words(av), words(bv), words([modulus])
+    n0 = np.uint64((-pow(modulus, -1, 1 << 32)) % (1 << 32))
+    rinv = pow(1 << 256, -1, modulus)
+    x = _Ptx(len(av))
+    assert ints(_cuh_mul(x, a, b, p, n0)) == [
+        u * v * rinv % modulus for u, v in zip(av, bv)]
+    add, sub = _cuh_add_sub(x, a, b, p)
+    assert ints(add) == [(u + v) % modulus for u, v in zip(av, bv)]
+    assert ints(sub) == [(u - v) % modulus for u, v in zip(av, bv)]

@@ -32,47 +32,63 @@ def _multiples(G, n):
 
 
 def _stream(curve, rows, lanes, seed):
-    """A (VC, rows, lanes) affine point stream over multiples of G, with
-    repeats and negations, and a run-flag plane."""
+    """An affine pool of multiples of G with negations, (rows, lanes) ids
+    into it with repeats, and a run-flag plane."""
     rng = np.random.default_rng(seed)
     G = G1 if curve == "g1" else G2
     pts = _multiples(G, 24)
     pts += [G.neg(p) for p in pts[:8]]
-    prep = (TMS.prepare_g1 if curve == "g1" else TMS.prepare_g2)(pts, "cpu")
-    pid = torch.from_numpy(rng.integers(0, len(pts), rows * lanes))
-    vals = prep[0].index_select(1, pid).view(-1, rows, lanes)
+    pool = (TMS.prepare_g1 if curve == "g1" else TMS.prepare_g2)(pts, "cpu")[0]
+    ids = torch.from_numpy(rng.integers(0, len(pts), (rows, lanes)).astype(
+        np.int32))
     flags = (rng.random((rows, lanes)) < 0.3).astype(np.int32)
     flags[-1] = 1
-    return vals, torch.from_numpy(flags)
+    return pool, ids, torch.from_numpy(flags)
 
 
-def _jax_runscan(vals, flags, curve, proj_in):
-    out = JMS._runscan_xla(jnp.asarray(TL.to_numpy(vals.permute(1, 0, 2))),
+def _jax_runscan(pool, ids, flags, curve, proj_in):
+    """_runscan_xla on the stream gathered on the host."""
+    rows, lanes = flags.shape
+    vals = TL.to_numpy(pool)[:, ids.numpy().reshape(-1)].reshape(-1, rows,
+                                                                 lanes)
+    out = JMS._runscan_xla(jnp.asarray(vals.transpose(1, 0, 2)),
                            jnp.asarray(flags.numpy()), curve, proj_in=proj_in)
     return np.asarray(out).transpose(1, 0, 2)  # (C, R+1, lanes)
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_runscan_matches_jax(curve):
-    vals, flags = _stream(curve, 6, 128, seed=1 if curve == "g1" else 2)
-    emit = CK.runscan(vals, flags, curve)
-    assert (TL.to_numpy(emit) == _jax_runscan(vals, flags, curve,
+    pool, ids, flags = _stream(curve, 6, 128, seed=1 if curve == "g1" else 2)
+    emit = CK.runscan(pool, ids, flags, curve)
+    assert (TL.to_numpy(emit) == _jax_runscan(pool, ids, flags, curve,
                                               False)).all()
     # the projective (level-2) stream: the emitted partials, reshuffled
     C = CK.rows(curve)
     rng = np.random.default_rng(3)
-    pos = torch.from_numpy(rng.integers(0, emit[0].numel(), 5 * 128))
-    vals2 = emit.reshape(C, -1).index_select(1, pos).view(C, 5, 128)
+    pool2 = emit.reshape(C, -1)
+    ids2 = torch.from_numpy(rng.integers(0, pool2.shape[1], (5, 128)).astype(
+        np.int32))
     flags2 = torch.from_numpy((rng.random((5, 128)) < 0.4).astype(np.int32))
-    emit2 = CK.runscan(vals2, flags2, curve, proj_in=True)
-    assert (TL.to_numpy(emit2) == _jax_runscan(vals2, flags2, curve,
+    emit2 = CK.runscan(pool2, ids2, flags2, curve, proj_in=True)
+    assert (TL.to_numpy(emit2) == _jax_runscan(pool2, ids2, flags2, curve,
                                                True)).all()
+
+
+def test_runscan_raises_off_cpu_without_cuda():
+    """Only an all-CPU call takes the plain version: any operand elsewhere
+    goes to the kernel's checks, which want int32 CUDA tensors, and
+    raise."""
+    pool, ids, flags = _stream("g1", 2, 32, seed=5)
+    meta = [t.to("meta") for t in (pool, ids, flags)]
+    for args in (meta, (pool, meta[1], flags), (pool, ids, meta[2])):
+        with pytest.raises(ValueError):
+            CK.runscan(*args, "g1")
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_pairs_add_matches_jax(curve):
-    vals, flags = _stream(curve, 6, 128, seed=4)
-    emit = CK.runscan(vals, flags, curve)  # projective points, identities
+    emit = CK.runscan(*_stream(curve, 6, 128, seed=4), curve)
+    # projective points and identities
     C = CK.rows(curve)
     flat = emit.reshape(C, -1)
     a, b = flat[:, :300].contiguous(), flat[:, 300:600].contiguous()

@@ -9,24 +9,34 @@
 // and keeps the carry in registers. Row r, lane l: if flags[r, l] the thread
 // emits its carry and restarts from the incoming point, else carry += point
 // (complete_add_z1 for the affine level-1 stream, complete_add for the
-// projective level-2 stream); rows without a flag emit the identity.
+// projective level-2 stream); rows without a flag emit the identity. Each
+// thread folds its lane top to bottom in stream order, so the emit is
+// exactly the TPU kernel's for the same stream, at any stream shape.
+//
+// The stream is never materialised: element (r, l) is column ids[r, l] of a
+// words-first pool, read inside the kernel. Level 1 reads the segment's
+// affine pool by point id (8 MB for a G2 segment: its random reads stay in
+// the 50 MB L2), level 2 the level-1 emit by position.
 //
 // pairs_add replaces pallas_curve.pairs_add_call: one thread per pair.
 //
-// What bounds them on an H100: integer multiplies. A G1 stream add is 11
-// Fq products, a G2 add 39 (Fq2 Karatsuba), ~264 multiply instructions each,
-// against 64 (G1) or 128 (G2) bytes read per add. The run-scan has only as
-// many threads as the schedule has lanes (8,192 for G1, 2,048 for G2), far
-// from filling 132 SMs with enough warps to hide latency; LANES is kept
-// because the schedule, and with it bit-parity, depends on it. Blocks of one
-// warp spread those lanes over as many SMs as possible. The G2 carry (48
-// words) plus the Fq2 temporaries exceed what the registers hold without
-// spills at this size: nvcc -Xptxas -v reports them.
+// What bounds them on an H100: integer multiplies and the latency of their
+// carry chains. A G1 stream add is 11 Fq products, a G2 add 39 (Fq2
+// Karatsuba), 264 multiply instructions each (field.cuh), against 64 (G1)
+// or 128 (G2) bytes gathered per add. A lane is a chain of R dependent adds
+// that cannot be split without changing the projective representatives, so
+// the parallelism comes from the lane count: the schedule's lanes are chosen
+// for this card (ops/msm_scan.py), enough warps to fill 132 SMs as far as
+// the registers allow. The G2 carry (48 words) plus the Fq2 temporaries
+// need about all of a thread's 255 registers, which caps residency at 8
+// warps per SM; nvcc -Xptxas -v reports registers and spills. The field
+// products run on PTX carry chains (field.cuh).
 //
 // Layouts, all words-first and column-major so a warp's loads coalesce:
-//   vals  (VC, R+1, lanes) words: VC = 16 (G1) / 32 (G2) affine X|Y, or
+//   pool  (VC, pool_ld) words: VC = 16 (G1) / 32 (G2) affine X|Y, or
 //         C = 24 / 48 projective X|Y|Z for the level-2 stream
-//   flags (R+1, lanes) int32, nonzero where a run begins
+//   ids   (R+1, lanes) int32 pool columns; flags (R+1, lanes) int32,
+//         nonzero where a run begins
 //   emit  (C, R+1, lanes) words
 //   pairs (C, n) words
 //
@@ -35,26 +45,33 @@
 
 #include "field.cuh"
 
+// runscan threads per block. No minimum of resident blocks: G2 takes all
+// 255 registers (with a few bytes of spills) and a minimum would only force
+// more spills; G1 takes 102 (affine) and 132 (projective). At 32,768 lanes
+// a segment's 1,024 warps are one wave on 132 SMs for either curve.
+constexpr int RS_THREADS = 64;
+
 template <class T, bool PROJ_IN>
-__global__ void __launch_bounds__(32)
-    runscan_kernel(const u32* __restrict__ vals, const int* __restrict__ flags,
+__global__ void __launch_bounds__(RS_THREADS)
+    runscan_kernel(const u32* __restrict__ pool, long pool_ld,
+                   const int* __restrict__ ids, const int* __restrict__ flags,
                    u32* __restrict__ emit, int rows, int lanes) {
     int l = blockIdx.x * blockDim.x + threadIdx.x;
     if (l >= lanes) return;
-    const long ld = (long)rows * lanes;  // stride between word rows
-    const Proj<T> ident = identity<T>();
-    Proj<T> carry = ident;
+    const long ld = (long)rows * lanes;  // stride between emit word rows
     constexpr int K = Coord<T>::ROWS;
+    Proj<T> carry = identity<T>();
     for (int r = 0; r < rows; ++r) {
         const long i = (long)r * lanes + l;
         const bool f = flags[i] != 0;
-        store_proj(emit, ld, i, f ? carry : ident);
+        const long id = ids[i];
+        store_proj(emit, ld, i, f ? carry : identity<T>());
         if (PROJ_IN) {
-            Proj<T> q = load_proj<T>(vals, ld, i);
+            Proj<T> q = load_proj<T>(pool, pool_ld, id);
             carry = f ? q : complete_add(carry, q);
         } else {
-            T x = Coord<T>::load(vals, ld, i);
-            T y = Coord<T>::load(vals + K * ld, ld, i);
+            T x = Coord<T>::load(pool, pool_ld, id);
+            T y = Coord<T>::load(pool + K * pool_ld, pool_ld, id);
             if (f)
                 carry = Proj<T>{x, y, Coord<T>::one()};
             else
@@ -137,23 +154,29 @@ extern "C" int zt_step(int curve, int mixed, void* pool, const void* ia,
 }
 
 // curve: 0 = G1, 1 = G2. proj_in: 1 for the projective level-2 stream.
-extern "C" int zt_runscan(int curve, int proj_in, const void* vals,
-                          const void* flags, void* emit, int rows, int lanes,
-                          void* stream) {
+// pool: (VC, pool_ld) words; ids, flags: (rows, lanes) int32.
+extern "C" int zt_runscan(int curve, int proj_in, const void* pool,
+                          const void* ids, const void* flags, void* emit,
+                          int rows, int lanes, long pool_ld, void* stream) {
     if (rows <= 0 || lanes <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    unsigned blocks = (unsigned)((lanes + 31) / 32);
-    const u32* v = (const u32*)vals;
+    unsigned blocks = (unsigned)((lanes + RS_THREADS - 1) / RS_THREADS);
+    const u32* p = (const u32*)pool;
+    const int* id = (const int*)ids;
     const int* f = (const int*)flags;
     u32* e = (u32*)emit;
     if (curve == 0 && !proj_in)
-        runscan_kernel<Fq, false><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+        runscan_kernel<Fq, false><<<blocks, RS_THREADS, 0, s>>>(
+            p, pool_ld, id, f, e, rows, lanes);
     else if (curve == 0)
-        runscan_kernel<Fq, true><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+        runscan_kernel<Fq, true><<<blocks, RS_THREADS, 0, s>>>(
+            p, pool_ld, id, f, e, rows, lanes);
     else if (!proj_in)
-        runscan_kernel<Fq2, false><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+        runscan_kernel<Fq2, false><<<blocks, RS_THREADS, 0, s>>>(
+            p, pool_ld, id, f, e, rows, lanes);
     else
-        runscan_kernel<Fq2, true><<<blocks, 32, 0, s>>>(v, f, e, rows, lanes);
+        runscan_kernel<Fq2, true><<<blocks, RS_THREADS, 0, s>>>(
+            p, pool_ld, id, f, e, rows, lanes);
     return (int)cudaGetLastError();
 }
 

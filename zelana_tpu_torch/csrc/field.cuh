@@ -6,7 +6,8 @@
 // 8-bit f32 column-SOS, a TPU workaround for the missing widening multiply)
 // and _mod_add_sub, and pallas_curve._KernelFq / _KernelFq2 with
 // complete_add / complete_add_z1. Here the multiply is an 8x32-bit CIOS on
-// 64-bit products with one conditional subtract. The Montgomery product mod p
+// PTX carry chains (mad.lo.cc / madc.hi.cc, two independent chains per
+// step) with one conditional subtract. The Montgomery product mod p
 // is unique and both sides reduce to [0, p), so every output is bit-equal to
 // the JAX package's; the curve formulas are transcribed term for term, so
 // the projective representatives are equal too.
@@ -19,7 +20,6 @@
 #include <cuda_runtime.h>
 
 typedef uint32_t u32;
-typedef uint64_t u64;
 
 // field index: 0 = BN254 Fq (base field), 1 = BN254 Fr (scalar field),
 // 2 = BLS12-381 Fr (the privacy SDK's Poseidon field). Every modulus is below
@@ -75,28 +75,91 @@ struct Fq2 {
     Fq c0, c1;
 };
 
-// r = a - b over 256 bits; returns the borrow out
+// ---------------------------------------------------------------------------
+// PTX carry-chain primitives. The carry flag (CC.CF) passes from one
+// statement to the next: each is asm volatile, so the compiler keeps their
+// order, and no code the compiler emits between them touches the flag.
+// tests/test_torch_field.py::test_cuda_mul_chain_model runs a transcription
+// of mul, add256 and sub256 over these primitives, flag for flag.
+// ---------------------------------------------------------------------------
+
+namespace ptx {
+
+__device__ __forceinline__ u32 add_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 addc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 addc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 sub_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+// lo(a * b) + c, carry out
+__device__ __forceinline__ u32 mad_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;"
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+// lo(a * b) + c + carry in, carry out
+__device__ __forceinline__ u32 madc_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;"
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+// hi(a * b) + c + carry in, carry out
+__device__ __forceinline__ u32 madc_hi_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;"
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+// hi(a * b) + c + carry in (hi <= 2^32 - 2, so with c = 0 nothing is lost)
+__device__ __forceinline__ u32 madc_hi(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;"
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+}  // namespace ptx
+
+// r = a - b over 256 bits; returns 0xffffffff on a borrow out, else 0
 __device__ __forceinline__ u32 sub256(u32* r, const u32* a, const u32* b) {
-    u64 borrow = 0;
+    r[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        u64 d = (u64)a[j] - b[j] - borrow;
-        r[j] = (u32)d;
-        borrow = d >> 63;
-    }
-    return (u32)borrow;
+    for (int j = 1; j < 8; ++j) r[j] = ptx::subc_cc(a[j], b[j]);
+    return ptx::subc(0, 0);
 }
 
 // r = a + b over 256 bits; returns the carry out
 __device__ __forceinline__ u32 add256(u32* r, const u32* a, const u32* b) {
-    u64 carry = 0;
+    r[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        u64 s = (u64)a[j] + b[j] + carry;
-        r[j] = (u32)s;
-        carry = s >> 32;
-    }
-    return (u32)carry;
+    for (int j = 1; j < 8; ++j) r[j] = ptx::addc_cc(a[j], b[j]);
+    return ptx::addc(0, 0);
 }
 
 template <int F>
@@ -115,41 +178,97 @@ __device__ __forceinline__ Fp<F> sub(const Fp<F>& a, const Fp<F>& b) {
     return bo ? c : d;
 }
 
-// CIOS Montgomery product a * b * 2^-256 mod p, canonical (< p)
+// ---------------------------------------------------------------------------
+// CIOS Montgomery product over 32-bit words with the even/odd split.
+//
+// a * b_i = A_e + 2^32 A_o, where A_e holds the products a_j b_i of even j
+// (lo in word j, hi in word j + 1: the pairs never overlap, so one carry
+// chain adds them) and A_o those of odd j, shifted down one word; m p
+// splits the same way. The running value is T = E + 2^32 O in two 8-word
+// arrays, and each step adds A_e + P_e to E and A_o + P_o to O with two
+// independent chains of mad.lo / madc.hi. Dividing by 2^32 then swaps the
+// arrays' roles: the new E is O plus word 1 of E, the new O is E from word
+// 2 up (madc_n_rshift). A carry always goes to the word of its weight: out
+// of E's top into O's top, out of E's word 0 into O's word 0.
+//
+// For canonical inputs (a, b < p < 2^255) T < 2p before every step, so a
+// step's sum E + 2^32 O = T + a b_i + m p < 2^32 2p + 2p and O < 2^256: no
+// chain carries out of O's top word (the flag that cmad_n leaves there is
+// not read). The product is unique
+// and canonical, so it equals the JAX package's bit for bit.
+// ---------------------------------------------------------------------------
+
+// acc[j], acc[j + 1] = lo, hi of a[j] * bi for even j
+__device__ __forceinline__ void mul_n(u32* acc, const u32* a, u32 bi) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+        acc[j] = a[j] * bi;
+        acc[j + 1] = __umulhi(a[j], bi);
+    }
+}
+
+// acc += sum over even j of a[j] * bi * 2^(32 j); the carry out stays in
+// the flag
+__device__ __forceinline__ void cmad_n(u32* acc, const u32* a, u32 bi) {
+    acc[0] = ptx::mad_lo_cc(a[0], bi, acc[0]);
+    acc[1] = ptx::madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+        acc[j] = ptx::madc_lo_cc(a[j], bi, acc[j]);
+        acc[j + 1] = ptx::madc_hi_cc(a[j], bi, acc[j + 1]);
+    }
+}
+
+// acc = (acc >> 64) + sum over even j of a[j] * bi * 2^(32 j) + carry in
+__device__ __forceinline__ void madc_n_rshift(u32* acc, const u32* a,
+                                              u32 bi) {
+#pragma unroll
+    for (int j = 0; j < 6; j += 2) {
+        acc[j] = ptx::madc_lo_cc(a[j], bi, acc[j + 2]);
+        acc[j + 1] = ptx::madc_hi_cc(a[j], bi, acc[j + 3]);
+    }
+    acc[6] = ptx::madc_lo_cc(a[6], bi, 0);
+    acc[7] = ptx::madc_hi(a[6], bi, 0);
+}
+
+// one CIOS step with b_i. On entry (but the first) the previous step left
+// its E in od (od[0] = 0) and its O in ev: T = ev + od / 2^32. On exit
+// ev + 2^32 od = T + a b_i + m p, with ev[0] = 0.
+template <int F>
+__device__ __forceinline__ void mad_n_redc(u32* ev, u32* od, const u32* a,
+                                           u32 bi, bool first) {
+    if (first) {
+        mul_n(od, a + 1, bi);
+        mul_n(ev, a, bi);
+    } else {
+        ev[0] = ptx::add_cc(ev[0], od[1]);
+        madc_n_rshift(od, a + 1, bi);
+        cmad_n(ev, a, bi);
+        od[7] = ptx::addc(od[7], 0);
+    }
+    const u32 m = ev[0] * kN0[F];
+    cmad_n(od, kP[F] + 1, m);
+    cmad_n(ev, kP[F], m);
+    od[7] = ptx::addc(od[7], 0);
+}
+
+// a * b * 2^-256 mod p, canonical (< p), for canonical a and b
 template <int F>
 __device__ __forceinline__ Fp<F> mul(const Fp<F>& a, const Fp<F>& b) {
-    u32 t[10];
+    u32 ev[8], od[8];
 #pragma unroll
-    for (int j = 0; j < 10; ++j) t[j] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u64 c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            c += (u64)t[j] + (u64)a.w[j] * b.w[i];
-            t[j] = (u32)c;
-            c >>= 32;
-        }
-        c += t[8];
-        t[8] = (u32)c;
-        t[9] = (u32)(c >> 32);
-        u32 m = t[0] * kN0[F];
-        c = ((u64)t[0] + (u64)m * kP[F][0]) >> 32;
-#pragma unroll
-        for (int j = 1; j < 8; ++j) {
-            c += (u64)t[j] + (u64)m * kP[F][j];
-            t[j - 1] = (u32)c;
-            c >>= 32;
-        }
-        c += t[8];
-        t[7] = (u32)c;
-        t[8] = t[9] + (u32)(c >> 32);
+    for (int i = 0; i < 8; i += 2) {
+        mad_n_redc<F>(ev, od, a.w, b.w[i], i == 0);
+        mad_n_redc<F>(od, ev, a.w, b.w[i + 1], false);
     }
+    // the last step left E in od and O in ev: T = ev + od / 2^32 < 2p
     Fp<F> r, d;
+    r.w[0] = ptx::add_cc(ev[0], od[1]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) r.w[j] = t[j];
-    u32 bo = sub256(d.w, r.w, kP[F]);
-    return (t[8] || !bo) ? d : r;
+    for (int j = 1; j < 7; ++j) r.w[j] = ptx::addc_cc(ev[j], od[j + 1]);
+    r.w[7] = ptx::addc(ev[7], 0);
+    const u32 bo = sub256(d.w, r.w, kP[F]);
+    return bo ? r : d;
 }
 
 // G1: 3b = 9, as 8x + x (the JAX kernel's doubling chain)

@@ -117,17 +117,17 @@ def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
     q = prepare_queries(pk, dev)
     digits_z = MSM.scalar_digits(z)
     return _msms_and_assembly(
-        pk, q, r, s, digits_z, None, None,
+        pk, q, r, s, digits_z, None,
         lambda: MSM.scalar_digits(witness_map_collect(h_handle, m)), dev)
 
 
-def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, segs_b2, h_digits,
-                       dev, t0=None) -> Proof:
+def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, h_digits, dev,
+                       t0=None) -> Proof:
     """The five MSMs and the host assembly. A worker thread runs
     h_digits() (download and decode of the h coefficients, digits) and
     builds and uploads the h schedules while this thread builds (unless
-    given) the z schedules and dispatches the a/b1/l MSMs (one shared
-    schedule set: same scalars z) and b2."""
+    given) the z schedules and dispatches the a/b1/l and b2 MSMs (one
+    shared schedule set: same scalars z, one lane count for G1 and G2)."""
 
     def _h_work():
         digits_h = h_digits()
@@ -139,16 +139,12 @@ def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, segs_b2, h_digits,
         h_fut = ex.submit(_h_work)
         if segs_z is None:
             segs_z = MSM.build_segment_schedules(digits_z)
-            segs_b2 = MSM.build_segment_schedules(digits_z,
-                                                  lanes=MSM.LANES_G2)
-            _trace("z + b2 segment schedules built", t0)
-        t_a, t_b1, t_l = (
+            _trace("z segment schedules built", t0)
+        t_a, t_b1, t_l, t_b2 = (
             MSM.msm_begin_scheds(q[k], segs_z,
                                  MSM._inf_correction(digits_z, q[k][1]))
-            for k in ("a", "b1", "l"))
-        t_b2 = MSM.msm_begin_scheds(
-            q["b2"], segs_b2, MSM._inf_correction(digits_z, q["b2"][1]))
-        _trace("a/b1/l (shared schedule) + b2 MSMs in flight", t0)
+            for k in ("a", "b1", "l", "b2"))
+        _trace("a/b1/l/b2 MSMs in flight (one shared schedule)", t0)
         segs_h, digits_h = h_fut.result()
     _trace("h downloaded + decoded + scheduled (worker thread)", t0)
     t_h = MSM.msm_begin_scheds(q["h"], segs_h,
@@ -259,8 +255,7 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
     """prove() over a natively synthesized system (the production chunk
     path: synthesis, satisfaction check, matvec and digits are C / numpy).
 
-    `precomputed` (optional): {"digits_z", "segs_z", "segs_b2", "wm",
-    "uploads"} built ahead by Groth16ChunkProver._synth_chunk on a worker
+    `precomputed` (optional): {"digits_z", "segs_z", "wm", "uploads"} built ahead by Groth16ChunkProver._synth_chunk on a worker
     thread while the previous chunk's kernels ran; "uploads" is the
     ops.staging handle of its device copies, waited on here before any
     kernel reads them."""
@@ -291,7 +286,7 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
     digits_z = (pre["digits_z"] if "digits_z" in pre
                 else MSM.scalar_digits(system.z))
     return _msms_and_assembly(
-        pk, q, r, s, digits_z, pre.get("segs_z"), pre.get("segs_b2"),
+        pk, q, r, s, digits_z, pre.get("segs_z"),
         lambda: MSM.scalar_digits(
             from_mont_words(staging.fetch(h_handle))[:m - 1]),
         dev, t0)

@@ -107,7 +107,7 @@ def _declare(cdll) -> None:
     sigs = {
         "zt_mont_mul": [i, p, p, p, l, p],
         "zt_butterfly": [i, p, p, p, p, p, l, p],
-        "zt_runscan": [i, i, p, p, p, i, i, p],
+        "zt_runscan": [i, i, p, p, p, p, i, i, l, p],
         "zt_pairs_add": [i, p, p, p, l, p],
         "zt_step": [i, i, p, p, p, l, l, l, l, p],
         "zt_mimc_permute": [p, p, p, l, i, p],

@@ -1,9 +1,12 @@
 """Point kernels of the run-scan MSM, each beside its plain version.
 
-- ``runscan(vals, flags, curve, proj_in)``: the bucket run-scan. CUDA kernel
-  ``csrc/curve_kernels.cu: runscan_kernel`` (four variants: G1/G2 x
-  affine/projective stream); replaces the TPU kernel
-  ``pallas_curve.runscan_call``.
+- ``runscan(pool, ids, flags, curve, proj_in)``: the bucket run-scan over
+  the stream that the (R+1, lanes) ids gather from a words-first pool; the
+  kernel reads the pool by id itself, so the stream is never materialised.
+  CUDA kernel ``csrc/curve_kernels.cu: runscan_kernel`` (four variants:
+  G1/G2 x affine/projective stream); replaces the TPU kernel
+  ``pallas_curve.runscan_call``. The emit depends on the stream shape
+  (rows x lanes) and is bit-equal to the TPU kernel's at equal shapes.
 - ``pairs_add(a, b, curve)``: batched complete projective A + B. CUDA
   kernel ``pairs_add_kernel``; replaces ``pallas_curve.pairs_add_call``.
 - ``step(pool, off, S, curve, ...)``: one in-place round of a slot-pool
@@ -213,14 +216,16 @@ def _join(coords, curve: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def runscan_plain(vals: torch.Tensor, flags: torch.Tensor, curve: str,
-                  proj_in: bool = False) -> torch.Tensor:
-    """vals (VC, R+1, lanes) words, flags (R+1, lanes) -> emit (C, R+1,
-    lanes): row r holds each lane's finished run total where flags[r] is
-    set, else the identity; a flag restarts the carry from the point."""
+def runscan_plain(pool: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
+                  curve: str, proj_in: bool = False) -> torch.Tensor:
+    """pool (VC, n) words, ids and flags (R+1, lanes) -> emit (C, R+1,
+    lanes). Stream element (r, l) is pool column ids[r, l]; row r of the
+    emit holds each lane's finished run total where flags[r] is set, else
+    the identity; a flag restarts the carry from the point."""
     F = _field(curve)
     C = rows(curve)
     nrows, lanes = flags.shape
+    vals = pool.index_select(1, ids.reshape(-1)).view(-1, nrows, lanes)
     ident = L.unpack(L.to_tensor(ident_words(curve).reshape(C, 1),
                                  vals.device)).expand(2 * C, lanes)
     one = ident[16:32] if curve == "g1" else ident[32:48]
@@ -275,20 +280,31 @@ def step_plain(pool: torch.Tensor, off: int, S: int, curve: str, ia=None,
 # ---------------------------------------------------------------------------
 
 
-def runscan(vals: torch.Tensor, flags: torch.Tensor, curve: str,
-            proj_in: bool = False) -> torch.Tensor:
-    """The bucket run-scan; see runscan_plain for the contract."""
-    if vals.device.type == "cpu" and flags.device.type == "cpu":
-        return runscan_plain(vals, flags, curve, proj_in)
+def runscan(pool: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
+            curve: str, proj_in: bool = False) -> torch.Tensor:
+    """The bucket run-scan over the stream that ids gathers from pool; see
+    runscan_plain for the contract. pool may be a column slice of a wider
+    pool (its rows strided, its columns contiguous); every id must lie in
+    [0, pool.shape[1])."""
+    if all(t.device.type == "cpu" for t in (pool, ids, flags)):
+        return runscan_plain(pool, ids, flags, curve, proj_in)
     nrows, lanes = flags.shape
     VC = rows(curve, proj_in)
-    dev = cuda.check([vals, flags], [(VC, nrows, lanes), (nrows, lanes)],
-                     "runscan")
+    dev = cuda.check([ids, flags], [(nrows, lanes)] * 2, "runscan")
+    if pool.device != dev or pool.dtype != torch.int32:
+        raise ValueError(f"runscan: pool must be int32 words on {dev}, got "
+                         f"{pool.dtype} on {pool.device}")
+    if pool.dim() != 2 or pool.shape[0] != VC or (
+            pool.shape[1] > 1 and pool.stride(1) != 1):
+        raise ValueError(f"runscan: pool must be ({VC}, n) words with "
+                         f"contiguous columns, got shape {tuple(pool.shape)} "
+                         f"strides {pool.stride()}")
     emit = torch.empty((rows(curve), nrows, lanes), dtype=torch.int32,
                        device=dev)
     cuda.launch("curve_kernels", "zt_runscan", 0 if curve == "g1" else 1,
-                int(proj_in), vals.data_ptr(), flags.data_ptr(),
-                emit.data_ptr(), nrows, lanes, device=dev)
+                int(proj_in), pool.data_ptr(), ids.data_ptr(),
+                flags.data_ptr(), emit.data_ptr(), nrows, lanes,
+                pool.stride(0), device=dev)
     cuda.LAUNCHES["runscan"] += 1
     return emit
 

@@ -5,16 +5,27 @@
    and lays it out column-major over lanes x R rows, with a flag where each
    (window, digit) run begins. Zero digits stay in the stream; their buckets
    are never read.
-2. Device: gather the affine points into stream order, run-scan them
-   (curve_kernels.runscan): each lane emits its finished partial bucket sums.
+2. Device: run-scan the stream (curve_kernels.runscan): the kernel reads
+   each affine point from the pool by its id, and each lane emits its
+   finished partial bucket sums.
 3. The per-lane partials of each bucket form a second key-sorted stream,
-   reduced by a projective run-scan (the level-2 scan); K layers of what is
-   left merge into the dense (32 windows x 256 digits) bucket layout by K-1
-   complete adds (curve_kernels.pairs_add).
+   reduced by a projective run-scan (the level-2 scan, reading the level-1
+   emit by position); K2 layers of what is left merge into the dense
+   (32 windows x 256 digits) bucket layout by K2-1 complete adds
+   (curve_kernels.pairs_add).
 4. sum_d d * S_d splits by digit bits into 8 x 32 bit-subset sums: a fixed
    gather and a 7-level pairwise tree of pairs_add.
 5. Host: bit and window Horner in Jacobian big ints, one inversion
    (_finish_host).
+
+The stream shape is chosen for the H100, not taken from the JAX package
+(whose 2,048 G2 lanes were a TPU VMEM limit): LANES = 32,768 level-1 lanes
+for G1 and G2 alike, so one schedule set serves all four z MSMs, and a
+2^16-point segment has R = 64 rows and 1,024 warps of lanes. The level-2
+width comes from the digit histogram (level2_lanes): skewed digits pile
+one bucket's partials into a long level-2 run, and a narrower level 2
+keeps its merge layers K2 within the native scheduler's KMAX. The emit
+buffers depend on the stream shape; the MSM result does not.
 
 MSMs above CHUNK_N points run as segments of at most CHUNK_N (the schedule's
 point ids are 16-bit), with at most MAX_INFLIGHT segments queued before the
@@ -22,8 +33,8 @@ oldest one is fetched; segment results add up on the host.
 
 Identity points are stored in the pools as the generator, so the schedule
 depends on the scalars only and one schedule set serves every pool with the
-same scalars (the Groth16 a, b1 and l queries); the result is corrected by
-one host scalar multiply (_inf_correction).
+same scalars (the Groth16 a, b1, l and b2 queries); the result is corrected
+by one host scalar multiply (_inf_correction).
 """
 
 from __future__ import annotations
@@ -43,8 +54,11 @@ from . import curve_kernels as CK
 from . import limbs as L
 from . import sched_native
 
-LANES = 8192  # level-1 stream lanes (G1)
-LANES_G2 = 2048
+LANES = 32768  # level-1 stream lanes, G1 and G2 (the H100 sweep, PERF.md)
+LANES2 = 8192  # level-2 stream lanes at most
+LANES2_MIN = 32
+K2_BOUND = 8  # dense merge layers the level-2 width aims to stay within
+KMAX = 64  # dense merge layers the native scheduler accepts
 SCAN_BITS = 8
 SCAN_WINDOWS = 32  # ceil(254 / 8)
 SCAN_BUCKETS = 1 << SCAN_BITS
@@ -93,17 +107,63 @@ class Schedule:
     # emit; position 0 (row 0 of lane 0) always holds the identity
 
 
-def build_schedule(digits: np.ndarray, lanes: int = LANES) -> Schedule:
-    """Two-level schedule of one segment; digits: (W, n) int32, n <= 2^16."""
+def level1_shape(nw: int, lanes: int = LANES) -> tuple:
+    """(lanes, R) of the level-1 stream of nw window digits: at most
+    `lanes` lanes, fewer for a small MSM so that a lane holds 8 rows."""
+    lanes0 = min(lanes, _round_pow2(max(nw // 8, 128), 128))
+    return lanes0, -(-nw // lanes0)
+
+
+def _bucket_partials(digits: np.ndarray, R: int) -> np.ndarray:
+    """Level-1 partials of each bucket (key w * 256 + digit) on R rows: a
+    bucket's stream entries are one contiguous range of the column-major
+    stream, and each lane the range touches emits one partial. Zero digits
+    emit none."""
+    counts = np.stack([np.bincount(row, minlength=SCAN_BUCKETS)
+                       for row in digits]).reshape(-1)
+    start = np.cumsum(counts) - counts
+    parts = np.where(counts > 0, (start + counts - 1) // R - start // R + 1, 0)
+    parts[::SCAN_BUCKETS] = 0
+    return parts
+
+
+def level2_layers(parts: np.ndarray, lanes2: int) -> int:
+    """K2, the dense merge layers of a level-2 stream of `parts` partials
+    per bucket over lanes2 lanes: the most lanes one bucket's run
+    touches."""
+    nz = parts > 0
+    if not nz.any():
+        return 1
+    R2 = -(-int(parts.sum()) // lanes2)
+    start = (np.cumsum(parts) - parts)[nz]
+    return int(((start + parts[nz] - 1) // R2 - start // R2 + 1).max())
+
+
+def level2_lanes(parts: np.ndarray, cap: int = LANES2) -> int:
+    """The level-2 width: the widest power of two up to `cap` (and no wider
+    than the stream) whose dense merge needs at most K2_BOUND layers, but
+    never below LANES2_MIN. Skewed digits (many scalars with one digit, as
+    the boolean entries of a witness vector give) make one bucket's partials
+    a long run; narrower level-2 lanes make it span fewer of them. At
+    LANES2_MIN a bucket spans at most about 34 lanes, within KMAX."""
+    widest = 1 << max(int(parts.sum()).bit_length() - 1, 0)
+    lanes2 = max(LANES2_MIN, min(cap, widest))
+    while lanes2 > LANES2_MIN and level2_layers(parts, lanes2) > K2_BOUND:
+        lanes2 //= 2
+    return lanes2
+
+
+def build_schedule(digits: np.ndarray, lanes: int = LANES,
+                   lanes2: int = None) -> Schedule:
+    """Two-level schedule of one segment; digits: (W, n) int32, n <= 2^16.
+    lanes2: the level-2 width, by default level2_lanes of the digits."""
     w, n = digits.shape
     assert n <= 1 << 16, "schedule point ids are 16-bit: segment the MSM"
-    nw = w * n
-    lanes0 = min(lanes, _round_pow2(max(nw // 8, 128), 128))
-    R0 = -(-nw // lanes0)
-    bound = w * SCAN_BUCKETS + lanes0
-    lanes2 = min(1024, _round_pow2(max(bound // 8, 128), 128))
+    lanes0, R0 = level1_shape(w * n, lanes)
+    if lanes2 is None:
+        lanes2 = level2_lanes(_bucket_partials(digits, R0))
     perm, flag_bits, pos2, dense = sched_native.build_schedule_arrays2(
-        digits, SCAN_BUCKETS, lanes0, R0, lanes2)
+        digits, SCAN_BUCKETS, lanes0, R0, lanes2, KMAX)
     flag = np.unpackbits(flag_bits.view(np.uint8), axis=1,
                          bitorder="little").astype(np.int32)
     return Schedule(
@@ -117,9 +177,8 @@ def _upload(s: Schedule, device) -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {"pid": t(s.pid.reshape(-1)), "flag": t(s.flag),
-            "pos2": t(s.pos2.reshape(-1)), "flag2": t(s.flag2),
-            "dense": t(s.dense_idx.reshape(-1))}
+    return {"pid": t(s.pid), "flag": t(s.flag), "pos2": t(s.pos2),
+            "flag2": t(s.flag2), "dense": t(s.dense_idx.reshape(-1))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,12 +203,9 @@ def _device_msm(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
     """One segment: pool (VC, n) affine words, d its uploaded schedule ->
     (C, 8 * 32) words of the projective bit-subset sums."""
     C = CK.rows(curve)
-    rows1, lanes1 = d["flag"].shape
-    vals = pool.index_select(1, d["pid"]).view(pool.shape[0], rows1, lanes1)
-    emit = CK.runscan(vals, d["flag"], curve)
-    rows2, lanes2 = d["flag2"].shape
-    vals2 = emit.view(C, -1).index_select(1, d["pos2"]).view(C, rows2, lanes2)
-    emit2 = CK.runscan(vals2, d["flag2"], curve, proj_in=True).view(C, -1)
+    emit = CK.runscan(pool, d["pid"], d["flag"], curve)
+    emit2 = CK.runscan(emit.view(C, -1), d["pos2"], d["flag2"], curve,
+                       proj_in=True).view(C, -1)
     nb = SCAN_WINDOWS * SCAN_BUCKETS
     K = d["dense"].numel() // nb
     dense = emit2.index_select(1, d["dense"]).view(C, K, nb)
@@ -367,8 +423,7 @@ def msm_begin_scheds(prepared, segs: list, corr: int = 0):
 def msm_begin(prepared, scalars, curve: str, digits: np.ndarray = None):
     if digits is None:
         digits = scalar_digits(scalars)
-    segs = build_segment_schedules(
-        digits, LANES if curve == "g1" else LANES_G2)
+    segs = build_segment_schedules(digits)
     return msm_begin_scheds(prepared, segs,
                             _inf_correction(digits, prepared[1]))
 

@@ -169,15 +169,12 @@ class Groth16ChunkProver:
         pre = {
             "digits_z": digits_z,
             "segs_z": MSM.build_segment_schedules(digits_z),
-            "segs_b2": MSM.build_segment_schedules(digits_z,
-                                                   lanes=MSM.LANES_G2),
         }
         with staging.side_stream(dev):
             pre["wm"] = P.witness_map_stage_native(system, dev)
             MSM.upload_segment_schedules(pre["segs_z"], dev)
-            MSM.upload_segment_schedules(pre["segs_b2"], dev)
             pre["uploads"] = staging.hand_over(
-                pre["wm"].words + [t for seg in pre["segs_z"] + pre["segs_b2"]
+                pre["wm"].words + [t for seg in pre["segs_z"]
                                    for t in seg["dev"].values()], dev)
         return circuit, system, pre
 
