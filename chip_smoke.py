@@ -11,12 +11,14 @@ Phases (any failure exits non-zero and prints no result):
   2. `kernels`: each kernel against its plain PyTorch version on the card,
      exact equality: mont_mul (2^16 Fr, Fq and BLS12-381 Fr, with 0, 1 and
      p - 1), one butterfly stage (n = 2^16), runscan in its four variants
-     on a real schedule over a 2^12-point pool, pairs_add (G1, G2) at 2^14,
-     step (G1, G2, general and mixed) at S = 2^14 by slot ids and by
-     pairing, and the five step rounds of one 32,768-scalar keygen chunk
-     (G1, G2); mimc_permute at 2^14 (91 rounds, and 3 rounds of the JAX
-     test's constants); inv_fwd, inv_bwd and fermat at n = 2^16 and
-     n = 20,480 (a partial last tile), Fr and Fq, whole outputs compared;
+     on a real schedule over a 2^12-point pool and bucket_tail (G1, G2) on
+     that schedule's level-2 emit, step (G1, G2, general and mixed) at
+     S = 2^14 by slot ids and by pairing in one round and in five, and
+     keygen's five step rounds in one launch on a 32,768-scalar chunk
+     (G1, G2) against five single plain rounds; mimc_permute at 2^14 (91
+     rounds, and 3 rounds of the JAX test's constants); inv_fwd, inv_bwd
+     and fermat at n = 2^16 and n = 20,480 (a partial last tile), Fr and
+     Fq, whole outputs compared;
   `hashes`: hash2_batch at 2^20 leaves (one level of a 2^21-leaf account
      tree), hash_n_batch with 3 and 5 columns at 2^16, Poseidon BN254 8/56
      over two columns at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12; 256
@@ -41,14 +43,17 @@ Phases (any failure exits non-zero and prints no result):
      lane sweep (the whole segment's device time per level-1 lane count and
      level-2 cap), the kernel times at the earlier shapes (8,192 / 2,048
      lanes, 1,024 level-2 lanes) and at the chosen ones beside their bound,
-     and the chosen level-1 pass against its plain version on the card;
+     and the chosen level-1 pass and bucket tail against their plain
+     versions on the card;
   6. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
      production key (1,129,391 variables, 2^21 domain) with the step
-     kernel, then prove_chunks proves a batch that fills two chunks; both
-     proofs pass verify_chunk and their roots chain. Phase times of keygen,
-     per-chunk prove times, the run-scan device time, busy time and idle
-     share of one chunk prove under torch.profiler, the peak device memory,
-     and R, R2 and K2 of the chunk's z schedules;
+     kernel (one launch per chunk and curve), then prove_chunks proves a
+     batch that fills two chunks; both proofs pass verify_chunk and their
+     roots chain. Phase times of keygen, per-chunk prove times and launches,
+     the run-scan and bucket-tail device time, busy time and idle share of
+     one chunk prove under torch.profiler with the torch copy and gather
+     kernels left on its device, the peak device memory, and R, R2 and K2
+     of the chunk's z schedules;
   7. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen, mimc_permute on the
      hashes, inv_fwd / inv_bwd / fermat on the inversions), the card, the
@@ -75,7 +80,7 @@ CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
           "production")
-SLICE_KERNELS = ("mont_mul", "butterfly", "runscan", "pairs_add")
+SLICE_KERNELS = ("mont_mul", "butterfly", "runscan", "bucket_tail")
 
 
 def log(*a):
@@ -215,6 +220,17 @@ def runscan_work(torch, pool, ids, flags, curve, proj_in):
     return nbytes, adds * RUNSCAN_MULS[(curve, proj_in)] * MUL_OPS
 
 
+def tail_work(torch, emit2, dense, K, curve):
+    """(bytes, int32 operations) of one bucket tail: the emit columns the
+    dense ids name, read once, the ids, the 256 finals written; (K - 1)
+    merge adds per bucket and 127 tree adds per subset group."""
+    C = 24 if curve == "g1" else 48
+    uniq = int(torch.unique(dense).numel())
+    nbytes = 4 * (C * uniq + dense.numel() + C * 256)
+    adds = (K - 1) * 8192 + 256 * 127
+    return nbytes, adds * RUNSCAN_MULS[(curve, True)] * MUL_OPS
+
+
 def rand_words(torch, rng, modulus_top: int, n: int, dev):
     """(8, n) int32 words of random canonical values (top word below the
     modulus's top word, so every value is < p)."""
@@ -304,14 +320,14 @@ def phase_kernels(torch, dev, report) -> list:
                           plain, bms, by))
 
     # runscan, four variants, on a real schedule over a 2^12-point pool;
-    # pairs_add at 2^14 on the level-1 emit's projective points
+    # bucket_tail on that schedule's level-2 emit
     npool = 1 << 12
     scalars = [int.from_bytes(rng.bytes(32), "little") % FR
                for _ in range(npool)]
     digits = MSM.scalar_digits(scalars)
-    rs_err = pa_err = 0
+    rs_err = bt_err = 0
     rs = {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
-    pa = {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+    bt = {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
     for curve, G, gen in (("g1", G1, G1.generator()),
                           ("g2", G2, G2.generator())):
         pts, acc = [], gen
@@ -341,33 +357,34 @@ def phase_kernels(torch, dev, report) -> list:
             nbytes, ops = runscan_work(torch, src_pool, ids, f, curve, proj)
             rs["bytes"] += nbytes
             rs["ops"] += ops
-        flat = emit.view(C, -1)
-        k = 1 << 14
-        A = flat[:, :k].contiguous()
-        B = flat[:, k:2 * k].contiguous()
-        pa_err = max(pa_err, check(f"pairs_add {curve}",
-                                   CK.pairs_add(A, B, curve),
-                                   CK.pairs_add_plain(A, B, curve)))
-        pa["ms"] += cuda_ms(torch, lambda: CK.pairs_add(A, B, curve), 20)
-        pa["plain"] += cuda_ms(torch, lambda: CK.pairs_add_plain(A, B, curve),
-                               1, False)
-        pa["bytes"] += 3 * C * 4 * k
-        pa["ops"] += k * (12 if curve == "g1" else 42) * MUL_OPS
+        flat2 = emit2.view(C, -1)
+        K = d["dense"].numel() // (MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS)
+        bt_err = max(bt_err, check(
+            f"bucket_tail {curve} (K {K})",
+            CK.bucket_tail(flat2, d["dense"], K, curve),
+            CK.bucket_tail_plain(flat2, d["dense"], K, curve)))
+        bt["ms"] += cuda_ms(torch, lambda: CK.bucket_tail(flat2, d["dense"],
+                                                          K, curve), 20)
+        bt["plain"] += cuda_ms(torch, lambda: CK.bucket_tail_plain(
+            flat2, d["dense"], K, curve), 1, False)
+        nbytes, ops = tail_work(torch, flat2, d["dense"], K, curve)
+        bt["bytes"] += nbytes
+        bt["ops"] += ops
     bms, by = bound_ms(rs["bytes"], rs["ops"])
     kernels.append(_entry("runscan", "zelana_tpu_torch/csrc/curve_kernels.cu",
                           "zelana_tpu/ops/pallas_curve.py:510", rs_err,
                           rs["ms"], rs["plain"], bms, by))
-    bms, by = bound_ms(pa["bytes"], pa["ops"])
-    kernels.append(_entry("pairs_add",
+    bms, by = bound_ms(bt["bytes"], bt["ops"])
+    kernels.append(_entry("bucket_tail",
                           "zelana_tpu_torch/csrc/curve_kernels.cu",
-                          "zelana_tpu/ops/pallas_curve.py:545", pa_err,
-                          pa["ms"], pa["plain"], bms, by))
+                          "zelana_tpu/ops/pallas_curve.py:545", bt_err,
+                          bt["ms"], bt["plain"], bms, by))
 
     # step: G1 / G2, general / mixed, at S = 2^14 over random field words
     # (the adds are straight-line formulas, so any words compare bit for
-    # bit). Pool: reads from [0, 2S), writes [2S, 3S), guard slots after;
-    # the whole pool is compared, so slots outside the write block must
-    # come back untouched.
+    # bit), one round and five rounds in one launch. Pool: reads from
+    # [0, 2S), writes [2S, 3S), guard slots after; the whole pool is
+    # compared, so slots outside the write block must come back untouched.
     S = 1 << 14
     st_err = 0
     for curve in ("g1", "g2"):
@@ -377,16 +394,19 @@ def phase_kernels(torch, dev, report) -> list:
                           for _ in range(C // 8)])
         ia, ib = (torch.from_numpy(rng.integers(0, 2 * S, S).astype(
             np.int32)).to(dev) for _ in range(2))
-        for mixed in (False, True):
-            kind = "mixed" if mixed else "general"
+        for mixed, rounds in ((False, 1), (True, 1), (False, 5), (True, 5)):
+            kind = f"{'mixed' if mixed else 'general'}, {rounds} round(s)"
             got, want = pool.clone(), pool.clone()
-            CK.step(got, 2 * S, S, curve, ia, ib, read_hi=2 * S, mixed=mixed)
-            CK.step_plain(want, 2 * S, S, curve, ia, ib, mixed=mixed)
+            CK.step(got, 2 * S, S, curve, ia, ib, read_hi=2 * S, mixed=mixed,
+                    rounds=rounds)
+            CK.step_plain(want, 2 * S, S, curve, ia, ib, mixed=mixed,
+                          rounds=rounds)
             st_err = max(st_err, check(f"step {curve} {kind} by ids", got,
                                        want))
             got, want = pool.clone(), pool.clone()
-            CK.step(got, 2 * S, S, curve, base=0, mixed=mixed)
-            CK.step_plain(want, 2 * S, S, curve, base=0, mixed=mixed)
+            CK.step(got, 2 * S, S, curve, base=0, mixed=mixed, rounds=rounds)
+            CK.step_plain(want, 2 * S, S, curve, base=0, mixed=mixed,
+                          rounds=rounds)
             st_err = max(st_err, check(f"step {curve} {kind} by pairing",
                                        got, want))
     st = _step_keygen_chunk(torch, dev, rng, check)
@@ -410,13 +430,14 @@ def phase_kernels(torch, dev, report) -> list:
 
 
 def _step_keygen_chunk(torch, dev, rng, check) -> dict:
-    """The five step rounds of one FB_CHUNK-scalar keygen chunk, as
-    fixed_base._run_fb launches them (round 0 by slot ids into the window
-    table, rounds 1-4 by pairing), for G1 and for G2: kernel against plain
-    over the whole pool, and the times of the five rounds summed over both
-    curves beside their bound. Per launch the bound counts the slots read
-    (round 0: the table head once, and the two id arrays) and written, and
-    12 (G1) or 42 (G2) Montgomery products per add."""
+    """Keygen's five step rounds on one FB_CHUNK-scalar chunk, as
+    fixed_base._run_fb launches them (one launch per curve: round 0 by slot
+    ids into the window table, rounds 1-4 in the kernel), for G1 and for G2:
+    kernel against five single plain rounds over the whole pool (head + n
+    slots), and the time of the launch summed over both curves beside its
+    bound. The bound counts the table head read once, the two id arrays,
+    the n sums written, and 12 (G1) or 42 (G2) Montgomery products for each
+    of the 31 n adds of the five rounds."""
     import numpy as np
 
     from zelana_tpu_torch.curves import g1 as G1, g2 as G2
@@ -433,38 +454,33 @@ def _step_keygen_chunk(torch, dev, rng, check) -> dict:
     scalars[:3] = [0, 1, FR - 1]
     words = L.to_tensor(words32(fr_array(scalars)), dev)
     ia, ib = FB._slot_ids(words)
-    bases, sizes, total = FB._slot_plan(n)
+    S = n * FB.N_WINDOWS // 2
+    head_n = FB.N_TABLE + 1
     for curve, prep, gen in (("g1", FB.prepare_table_g1, G1.generator()),
                              ("g2", FB.prepare_table_g2, G2.generator())):
         C = CK.rows(curve)
         head = prep(gen, dev)[1]
-        pool = torch.zeros((C, total), dtype=torch.int32, device=dev)
-        pool[:, :FB.N_TABLE + 1] = head
+        pool = torch.zeros((C, head_n + n), dtype=torch.int32, device=dev)
+        pool[:, :head_n] = head
 
         def rounds(p, plain=False):
             if plain:
-                CK.step_plain(p, bases[0], sizes[0], curve, ia, ib)
-            else:
-                CK.step(p, bases[0], sizes[0], curve, ia, ib,
-                        read_hi=FB.N_TABLE + 1)
-            for r in range(1, FB.ROUNDS):
-                (CK.step_plain if plain else CK.step)(
-                    p, bases[r], sizes[r], curve, base=bases[r - 1])
-            return p
+                return CK.step_plain(p, head_n, S, curve, ia, ib,
+                                     rounds=FB.ROUNDS)
+            return CK.step(p, head_n, S, curve, ia, ib, read_hi=head_n,
+                           rounds=FB.ROUNDS)
 
         got = rounds(pool.clone())
         want = rounds(pool.clone(), plain=True)
         out["err"] = max(out["err"], check(
-            f"step {curve} keygen chunk ({n} scalars, 5 rounds)", got, want))
+            f"step {curve} keygen chunk ({n} scalars, 5 rounds in one "
+            f"launch)", got, want))
         work = pool.clone()
         out["ms"] += cuda_ms(torch, lambda: rounds(work), 5)
         out["plain"] += cuda_ms(torch, lambda: rounds(work, True), 1, False)
         muls = 12 if curve == "g1" else 42
-        for r in range(FB.ROUNDS):
-            read = (2 * sizes[r] * C * 4 if r else
-                    (FB.N_TABLE + 1) * C * 4 + 2 * sizes[r] * 4)
-            out["bytes"] += read + sizes[r] * C * 4
-            out["ops"] += sizes[r] * muls * MUL_OPS
+        out["bytes"] += head_n * C * 4 + 2 * S * 4 + n * C * 4
+        out["ops"] += (2 * S - n) * muls * MUL_OPS  # S + S/2 + ... + n adds
         del pool, got, want, work
     out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
     log(f"  step, one keygen chunk, G1 + G2: {out['ms']:.4f} ms kernel, "
@@ -842,7 +858,7 @@ def phase_slice(torch, dev, report) -> dict:
         prove(pk, circuit, batch_id=6)
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-    events = prof.key_averages()
+    events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"L2 prove under the profiler: {wall:.1f} ms wall, device busy "
         f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}")
@@ -1085,9 +1101,17 @@ def _segment_study(torch, pool, digits, curve, report) -> None:
     log(f"  runscan {curve} level 1, full segment at the chosen shape "
         f"{tuple(d['flag'].shape)}, against the plain version: mismatches "
         f"{mism}, max |diff| {err}")
-    if mism:
-        raise AssertionError(f"runscan {curve}: the full segment differs from "
-                             f"the plain version")
+    C = CK.rows(curve)
+    emit2 = CK.runscan(CK.runscan(pool, d["pid"], d["flag"], curve).view(
+        C, -1), d["pos2"], d["flag2"], curve, True).view(C, -1)
+    K = d["dense"].numel() // (MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS)
+    mism2, err2 = compare(torch, CK.bucket_tail(emit2, d["dense"], K, curve),
+                          CK.bucket_tail_plain(emit2, d["dense"], K, curve))
+    log(f"  bucket_tail {curve}, full segment at the chosen shape (K {K}), "
+        f"against the plain version: mismatches {mism2}, max |diff| {err2}")
+    if mism or mism2:
+        raise AssertionError(f"runscan / bucket_tail {curve}: the full "
+                             f"segment differs from the plain version")
 
 
 def _segment_kernels(torch, pool, d, curve, report, tag) -> None:
@@ -1100,29 +1124,32 @@ def _segment_kernels(torch, pool, d, curve, report, tag) -> None:
     rows2, lanes2 = d["flag2"].shape
     emit = CK.runscan(pool, d["pid"], d["flag"], curve)
     pool2 = emit.view(C, -1)
-    k = min(MSM.SCAN_BITS * MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS // 4,
-            pool2.shape[1] // 2)
-    A = pool2[:, :k].contiguous()
-    B = pool2[:, k:2 * k].contiguous()
+    emit2 = CK.runscan(pool2, d["pos2"], d["flag2"], curve, True).view(C, -1)
     K2 = d["dense"].numel() // (MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS)
-    for name, fn, work in (
-            (f"runscan {curve} level 1 ({rows1} x {lanes1})",
+    times = {}
+    for part, name, fn, work in (
+            ("level1", f"runscan {curve} level 1 ({rows1} x {lanes1})",
              lambda: CK.runscan(pool, d["pid"], d["flag"], curve),
              runscan_work(torch, pool, d["pid"], d["flag"], curve, False)),
-            (f"runscan {curve} level 2 ({rows2} x {lanes2})",
+            ("level2", f"runscan {curve} level 2 ({rows2} x {lanes2})",
              lambda: CK.runscan(pool2, d["pos2"], d["flag2"], curve, True),
              runscan_work(torch, pool2, d["pos2"], d["flag2"], curve, True)),
-            (f"pairs_add {curve} ({k})", lambda: CK.pairs_add(A, B, curve),
-             (3 * C * 4 * k, k * (12 if curve == "g1" else 42) * MUL_OPS)),
-            (f"segment {curve} (2 scans, {K2}-layer merge, tree)",
+            ("tail", f"bucket_tail {curve} (K {K2})",
+             lambda: CK.bucket_tail(emit2, d["dense"], K2, curve),
+             tail_work(torch, emit2, d["dense"], K2, curve)),
+            ("segment", f"segment {curve} (2 scans, {K2}-layer merge, tree)",
              lambda: MSM._device_msm(pool, d, curve), None)):
         ms = cuda_ms(torch, fn, 3)
+        times[part] = ms
         key = f"{name}, {tag}"
         report[key] = {"ms": ms}
         if work:
             bms, by = bound_ms(*work)
             report[key].update(bound_ms=bms, bound_by=by)
         log(f"  {key}: {report[key]}")
+    rest = times["segment"] - times["level1"] - times["level2"]
+    report[f"segment {curve} less its two scans, {tag}"] = rest
+    log(f"  segment {curve} less its two scans, {tag}: {rest:.4f} ms")
 
 
 def _tiled_scalar(limbs, tile: int) -> int:
@@ -1187,6 +1214,8 @@ def phase_production(torch, report) -> dict:
         f"wall, device busy {busy / 1e3:.3f} s, {len(pk.a_query)} "
         f"variables, h query {len(pk.h_query)}, launches {launches}, peak "
         f"device memory {rep['keygen_peak_bytes'] / 2**30:.2f} GiB")
+    log(f"production keygen: {launches['step']} step launches (one per "
+        f"chunk and curve)")
     if launches["step"] == 0:
         raise AssertionError("production keygen launched no step kernel")
 
@@ -1244,6 +1273,7 @@ def phase_production(torch, report) -> dict:
     log(f"both chunk proofs verify ({time.time() - t0:.2f} s), roots chain")
 
     # one chunk prove under the profiler: device busy time against wall
+    cuda.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         phase_log_start()
@@ -1254,15 +1284,38 @@ def phase_production(torch, report) -> dict:
         phases = _phases(phase_log_take(), t0)
     if again.proof_bytes != cps[0].proof_bytes:
         raise AssertionError("prove_chunk and prove_chunks differ on chunk 0")
+    one_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     busy = _device_busy_ms(prof, "chunk prove")
-    scan = sum(e.self_device_time_total for e in prof.key_averages()
+    events = device_events(prof)
+    scan = sum(e.self_device_time_total for e in events
                if "runscan_kernel" in e.key) / 1e3
+    merge, tree = (sum(e.self_device_time_total for e in events
+                       if k in e.key) / 1e3
+                   for k in ("bucket_merge_kernel", "bucket_tree_kernel"))
+    tail = merge + tree
     rep.update(profiled_wall_ms=wall, device_busy_ms=busy,
                idle_share=1 - busy / wall, prove_phases=phases,
-               runscan_device_ms=scan)
+               runscan_device_ms=scan, tail_device_ms=tail,
+               tail_merge_ms=merge, tail_tree_ms=tree,
+               chunk_prove_launches=one_launches)
     log(f"chunk prove under the profiler: {wall:.1f} ms wall, device busy "
-        f"{busy:.1f} ms (run-scan {scan:.1f} ms), idle share "
-        f"{1 - busy / wall:.4f}; equal to the pipelined proof")
+        f"{busy:.1f} ms (run-scan {scan:.1f} ms, bucket tail {tail:.2f} ms: "
+        f"merge {merge:.2f}, tree {tree:.2f}), "
+        f"idle share {1 - busy / wall:.4f}; launches {one_launches}; equal "
+        f"to the pipelined proof")
+    ours = tuple(f"{k}_kernel" for k in cuda.LAUNCHES) + (
+        "bucket_merge_kernel", "bucket_tree_kernel", "Memcpy", "Memset")
+    torch_ops = sorted((e for e in events if e.self_device_time_total > 0
+                        and not any(k in e.key for k in ours)),
+                       key=lambda e: -e.self_device_time_total)
+    rep["torch_device_ops"] = [(e.key[:90], e.count,
+                                e.self_device_time_total / 1e3)
+                               for e in torch_ops]
+    log("chunk prove, torch kernels left on the device (copies, gathers, "
+        "elementwise):")
+    for e in torch_ops:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
     _z_schedules(prover, chunks[0], rep)
     return launches
 
@@ -1290,14 +1343,33 @@ def _z_schedules(prover, chunk, rep) -> None:
             for (R, l, R2, l2, K2), v in sorted(shapes.items())))
 
 
+def device_events(prof) -> list:
+    """The profile's device-side events (kernels, copies, sets). A host op
+    (aten::copy_, aten::cat) carries the time of the kernels it launched
+    as its own device time too, so summing every event counts those
+    twice."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU]
+    if not events:
+        raise AssertionError("the profile holds no device events")
+    return events
+
+
 def _device_busy_ms(prof, what: str) -> float:
-    """Sum of the device's self time over a profile; logs the top kernels."""
-    events = prof.key_averages()
+    """Sum of the device's self time over a profile's device events; logs
+    the top kernels."""
+    events = device_events(prof)
     log(f"{what}, device time by kernel:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:70]}")
-    return sum(e.self_device_time_total for e in events) / 1e3
+    every = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{what}: device busy {busy:.3f} ms over device events; the sum "
+        f"over all events, host ops included, is {every:.3f} ms")
+    return busy
 
 
 def _phases(entries, t0) -> list:

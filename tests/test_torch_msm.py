@@ -1,6 +1,7 @@
 """The port's run-scan MSM (zelana_tpu_torch.ops.msm_scan, curve_kernels)
 against the JAX package's ops/msm_scan on the CPU: the run-scan emit buffer
-against _runscan_xla, pairs_add against proj_add_xla, and whole MSMs on the
+against _runscan_xla, pairs_add_plain and the bucket tail (the dense-layer
+merge and the bit-subset tree) against proj_add_xla, and whole MSMs on the
 inputs of tests/test_msm_scan.py. Exact equality (group points)."""
 
 import random
@@ -85,6 +86,16 @@ def test_runscan_raises_off_cpu_without_cuda():
             CK.runscan(*args, "g1")
 
 
+def _jax_padd(a: np.ndarray, b: np.ndarray, curve: str) -> np.ndarray:
+    """The JAX package's XLA pair add (msm_scan._device_msm's padd off the
+    TPU) over (C, n) packed words."""
+    ny = 3 if curve == "g1" else 6
+    P, Q = (JPC._coords(JPC.kernel_unpack(jnp.asarray(x)), curve, ny)
+            for x in (a, b))
+    return np.asarray(JPC.kernel_pack(JPC._flat(
+        JPC.proj_add_xla(P, Q, curve), curve)))
+
+
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_pairs_add_matches_jax(curve):
     emit = CK.runscan(*_stream(curve, 6, 128, seed=4), curve)
@@ -93,11 +104,45 @@ def test_pairs_add_matches_jax(curve):
     flat = emit.reshape(C, -1)
     a, b = flat[:, :300].contiguous(), flat[:, 300:600].contiguous()
     ny = 3 if curve == "g1" else 6
-    P, Q = (JPC._coords(JPC.kernel_unpack(jnp.asarray(TL.to_numpy(x))),
-                        curve, ny) for x in (a, b))
-    want = np.asarray(JPC.kernel_pack(JPC._flat(
-        JPC.proj_add_xla(P, Q, curve), curve)))
-    assert (TL.to_numpy(CK.pairs_add(a, b, curve)) == want).all()
+    want = _jax_padd(TL.to_numpy(a), TL.to_numpy(b), curve)
+    assert (TL.to_numpy(CK.pairs_add_plain(a, b, curve)) == want).all()
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_bucket_tail_plain_matches_jax(curve):
+    """bucket_tail_plain on a small segment's level-2 emit against the JAX
+    package's tail at the same shape: the dense gather, the K-layer fold
+    and the subset tree over proj_add_xla, as in its _device_msm."""
+    r = random.Random(61)  # a schedule with K = 2
+    n = 96
+    G = G1 if curve == "g1" else G2
+    pts = _multiples(G, n)
+    scalars = [r.randrange(FR) for _ in range(n)]
+    scalars[5:40] = [scalars[4]] * 35  # one long bucket run: K >= 2
+    d = TMS._upload(TMS.build_schedule(TMS.scalar_digits(scalars), 128, 32),
+                    "cpu")
+    pool = (TMS.prepare_g1 if curve == "g1" else TMS.prepare_g2)(pts,
+                                                                 "cpu")[0]
+    C = CK.rows(curve)
+    emit = CK.runscan(pool, d["pid"], d["flag"], curve)
+    emit2 = CK.runscan(emit.view(C, -1), d["pos2"], d["flag2"], curve,
+                       proj_in=True).view(C, -1)
+    nb = TMS.SCAN_WINDOWS * TMS.SCAN_BUCKETS
+    K = d["dense"].numel() // nb
+    assert K >= 2
+    got = CK.bucket_tail_plain(emit2, d["dense"], K, curve)
+    dense = TL.to_numpy(emit2)[:, d["dense"].numpy()].reshape(C, K, nb)
+    merged = dense[:, 0]
+    for k in range(1, K):
+        merged = _jax_padd(merged, dense[:, k], curve)
+    h = TMS.SCAN_BUCKETS // 2
+    x = merged[:, np.asarray(JMS._subset_idx())].reshape(C, -1, h)
+    while h > 1:
+        h //= 2
+        x = _jax_padd(x[:, :, :h].reshape(C, -1), x[:, :, h:2 * h].reshape(
+            C, -1), curve).reshape(C, -1, h)
+    assert (TL.to_numpy(got) == x[:, :, 0]).all()
+    assert torch.equal(got, CK.bucket_tail(emit2, d["dense"], K, curve))
 
 
 def test_msm_g1_matches_jax():

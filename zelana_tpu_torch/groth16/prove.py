@@ -7,7 +7,7 @@ Same pipeline and the same bytes as the JAX package's groth16/prove.py:
      coset NTT, (A.z * B.z - C.z) / Z on the coset, coset iNTT -> h(x)
      coefficients                          [mont_mul + butterfly kernels]
   3. five run-scan MSMs over the proving-key queries: a, b1, l, h in G1 and
-     b2 in G2                               [runscan + pairs_add kernels]
+     b2 in G2                           [runscan + bucket_tail kernels]
   4. assembly A = alpha + <a,z> + r*delta, B = beta + <b,z> + s*delta,
      C = <l,w> + <h_query,h> + s*A + r*B - rs*delta        (host, tiny)
 

@@ -31,7 +31,7 @@ SOURCES = ("field_kernels", "curve_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "pairs_add": 0,
+LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "bucket_tail": 0,
             "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
             "fermat": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
@@ -108,8 +108,9 @@ def _declare(cdll) -> None:
         "zt_mont_mul": [i, p, p, p, l, p],
         "zt_butterfly": [i, p, p, p, p, p, l, p],
         "zt_runscan": [i, i, p, p, p, p, i, i, l, p],
-        "zt_pairs_add": [i, p, p, p, l, p],
-        "zt_step": [i, i, p, p, p, l, l, l, l, p],
+        "zt_bucket_merge": [i, p, l, p, i, i, p, p],
+        "zt_bucket_tree": [i, p, i, p, p],
+        "zt_step": [i, i, p, p, p, l, l, l, l, i, p],
         "zt_mimc_permute": [p, p, p, l, i, p],
         "zt_inv_fwd": [i, p, p, p, l, p],
         "zt_inv_bwd": [i, p, p, p, p, l, p],

@@ -1,4 +1,5 @@
-"""Point kernels of the run-scan MSM, each beside its plain version.
+"""Point kernels of the run-scan MSM and of keygen, each beside its plain
+version.
 
 - ``runscan(pool, ids, flags, curve, proj_in)``: the bucket run-scan over
   the stream that the (R+1, lanes) ids gather from a words-first pool; the
@@ -7,12 +8,17 @@
   G1/G2 x affine/projective stream); replaces the TPU kernel
   ``pallas_curve.runscan_call``. The emit depends on the stream shape
   (rows x lanes) and is bit-equal to the TPU kernel's at equal shapes.
-- ``pairs_add(a, b, curve)``: batched complete projective A + B. CUDA
-  kernel ``pairs_add_kernel``; replaces ``pallas_curve.pairs_add_call``.
-- ``step(pool, off, S, curve, ...)``: one in-place round of a slot-pool
-  reduction (complete add, or the 9-product mixed add of two affine
-  operands), operands read from the pool by index. CUDA kernel
-  ``step_kernel``; replaces ``pallas_curve.step_call``.
+- ``bucket_tail(emit2, dense, K, curve)``: the MSM's tail after the
+  level-2 scan, the K dense layers folded into 8,192 buckets and the
+  256 bit-subset sums of them, gathers included. CUDA kernels
+  ``bucket_merge_kernel`` and ``bucket_tree_kernel`` (six threads per
+  complete add); they replace the TPU path's ``pallas_curve.pairs_add_call``
+  launches and the XLA gathers around them.
+- ``step(pool, off, S, curve, ..., rounds)``: ``rounds`` in-place rounds of
+  a slot-pool reduction tree in one launch (complete add, or in round 0 the
+  9-product mixed add of two affine operands), round-0 operands read from
+  the pool by index. CUDA kernel ``step_kernel``; replaces
+  ``pallas_curve.step_call``.
 
 Points are words-first packed columns: G1 coordinates are 8 word rows each
 (X | Y | Z, C = 24 rows projective, 16 affine), G2 coordinates 16 (c0 then
@@ -262,17 +268,67 @@ def _step_operands(ia, ib, base: int, S: int, device):
 
 
 def step_plain(pool: torch.Tensor, off: int, S: int, curve: str, ia=None,
-               ib=None, base: int = 0, mixed: bool = False) -> torch.Tensor:
-    """pool[:, off + i] = pool[:, a_i] + pool[:, b_i] for i < S, in place;
-    see step for the contract. Returns pool."""
+               ib=None, base: int = 0, mixed: bool = False,
+               rounds: int = 1) -> torch.Tensor:
+    """`rounds` single rounds: round 0 adds pool[:, a_i] + pool[:, b_i] for
+    i < S, round r >= 1 outputs 2i and 2i + 1 of round r - 1; the last
+    round's S / 2^(rounds-1) sums go to pool[:, off + i], in place. See step
+    for the contract. Returns pool."""
     ia, ib = _step_operands(ia, ib, base, S, pool.device)
     C = rows(curve)
     nrd = 2 * C // 3 if mixed else C  # mixed reads X | Y only
     P = _split(L.unpack(pool[:nrd].index_select(1, ia)), curve)
     Q = _split(L.unpack(pool[:nrd].index_select(1, ib)), curve)
     add = complete_add_mixed if mixed else complete_add
-    pool[:, off:off + S] = L.pack(_join(add(_field(curve), P, Q), curve))
+    out = L.pack(_join(add(_field(curve), P, Q), curve))
+    for _ in range(1, rounds):
+        out = pairs_add_plain(out[:, 0::2], out[:, 1::2], curve)
+    pool[:, off:off + out.shape[1]] = out
     return pool
+
+
+# the MSM's digit layout, which the bucket-tail kernels are built for:
+# 8-bit digits of 32 windows, 8 x 32 bit-subset sums per segment
+SUBSET_BITS = 8
+SUBSET_WINDOWS = 32  # ceil(254 / 8)
+SUBSET_BUCKETS = 1 << SUBSET_BITS
+
+
+@functools.lru_cache(maxsize=None)
+def subset_idx(device: torch.device) -> torch.Tensor:
+    """The bit-subset gather of the dense (32 x 256) bucket layout: group
+    t * 32 + w holds the 128 buckets of window w whose digit has bit t set,
+    in digit order."""
+    idx = np.zeros((SUBSET_BITS, SUBSET_WINDOWS, SUBSET_BUCKETS // 2),
+                   np.int32)
+    for t in range(SUBSET_BITS):
+        ds = np.flatnonzero((np.arange(SUBSET_BUCKETS) >> t) & 1)
+        for wi in range(SUBSET_WINDOWS):
+            idx[t, wi] = wi * SUBSET_BUCKETS + ds
+    return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+def bucket_tail_plain(emit2: torch.Tensor, dense: torch.Tensor, K: int,
+                      curve: str) -> torch.Tensor:
+    """emit2 (C, m) level-2 emit words, dense (K * 8192,) int32 columns of
+    it -> (C, 256) projective bit-subset sums, column t * 32 + w. Bucket b
+    is ((L0 + L1) + L2) + ... over its K dense layers (layer k is column
+    dense[k * 8192 + b]); then each group's 128 buckets (subset_idx) fold
+    pairwise, x[i] += x[i + h] for h = 64, ..., 1."""
+    C = rows(curve)
+    nb = SUBSET_WINDOWS * SUBSET_BUCKETS
+    layers = emit2.index_select(1, dense).view(C, K, nb)
+    merged = layers[:, 0]
+    for k in range(1, K):
+        merged = pairs_add_plain(merged, layers[:, k], curve)
+    h = SUBSET_BUCKETS // 2
+    x = merged.index_select(1, subset_idx(emit2.device)).view(C, -1, h)
+    while h > 1:
+        h //= 2
+        x = pairs_add_plain(x[:, :, :h].reshape(C, -1),
+                            x[:, :, h:2 * h].reshape(C, -1),
+                            curve).view(C, -1, h)
+    return x[:, :, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -309,32 +365,59 @@ def runscan(pool: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
     return emit
 
 
-def pairs_add(a: torch.Tensor, b: torch.Tensor, curve: str) -> torch.Tensor:
-    """Complete projective A + B over (C, n) word columns."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return pairs_add_plain(a, b, curve)
-    n = a.shape[1]
-    dev = cuda.check([a, b], [(rows(curve), n)] * 2, "pairs_add")
-    out = torch.empty_like(a)
-    cuda.launch("curve_kernels", "zt_pairs_add", 0 if curve == "g1" else 1,
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), n, device=dev)
-    cuda.LAUNCHES["pairs_add"] += 1
+def bucket_tail(emit2: torch.Tensor, dense: torch.Tensor, K: int,
+                curve: str) -> torch.Tensor:
+    """The MSM's bucket tail, gathers included; see bucket_tail_plain for
+    the contract. emit2: (C, m) words with contiguous columns (the level-2
+    run-scan's emit, viewed flat); dense: K * 8192 int32 columns of it."""
+    if emit2.device.type == "cpu" and dense.device.type == "cpu":
+        return bucket_tail_plain(emit2, dense, K, curve)
+    C = rows(curve)
+    nb = SUBSET_WINDOWS * SUBSET_BUCKETS
+    dev = cuda.check([emit2, dense], [(C, emit2.shape[1]), (K * nb,)],
+                     "bucket_tail")
+    cid = 0 if curve == "g1" else 1
+    merged = torch.empty((C, nb), dtype=torch.int32, device=dev)
+    cuda.launch("curve_kernels", "zt_bucket_merge", cid, emit2.data_ptr(),
+                emit2.shape[1], dense.data_ptr(), K, nb, merged.data_ptr(),
+                device=dev)
+    cuda.LAUNCHES["bucket_tail"] += 1
+    out = torch.empty((C, SUBSET_BITS * SUBSET_WINDOWS), dtype=torch.int32,
+                      device=dev)
+    cuda.launch("curve_kernels", "zt_bucket_tree", cid, merged.data_ptr(),
+                nb, out.data_ptr(), device=dev)
+    cuda.LAUNCHES["bucket_tail"] += 1
     return out
 
 
+STEP_MAX_ROUNDS = 5  # tree levels step_kernel keeps pending operands for
+
+
 def step(pool: torch.Tensor, off: int, S: int, curve: str, ia=None, ib=None,
-         base: int = 0, read_hi: int = None, mixed: bool = False):
-    """One in-place round of a slot-pool reduction over pool (C, total)
-    projective words: pool[:, off + i] = pool[:, a_i] + pool[:, b_i] for
-    i < S (complete add; with mixed, the 9-product add of two Z = 1
-    operands, reading X | Y only). Operands: slot ids ia, ib (S int32
-    each, all below read_hi), or with ia = ib = None the pairing
-    a_i = base + 2i, b_i = base + 2i + 1. The slots read and the slots
-    written must be disjoint; this raises otherwise. Returns pool."""
+         base: int = 0, read_hi: int = None, mixed: bool = False,
+         rounds: int = 1):
+    """`rounds` in-place rounds of a slot-pool reduction tree over pool
+    (C, total) projective words, in one launch. Round 0 adds
+    pool[:, a_i] + pool[:, b_i] for i < S (complete add; with mixed, the
+    9-product add of two Z = 1 operands, reading X | Y only). Its operands:
+    slot ids ia, ib (S int32 each, all below read_hi), or with ia = ib =
+    None the pairing a_i = base + 2i, b_i = base + 2i + 1. Round r >= 1 adds
+    outputs 2i and 2i + 1 of round r - 1; the last round's S / 2^(rounds-1)
+    sums go to pool[:, off + i]. 2^(rounds-1) must divide S, and the slots
+    read and the slots written must be disjoint; this raises otherwise.
+    Returns pool."""
     total = pool.shape[1]
-    if off < 0 or off + S > total:
-        raise ValueError(f"step: write block [{off}, {off + S}) outside the "
-                         f"pool of {total} slots")
+    if not 1 <= rounds <= STEP_MAX_ROUNDS:
+        raise ValueError(f"step: rounds must lie in [1, {STEP_MAX_ROUNDS}], "
+                         f"got {rounds}")
+    span = 1 << (rounds - 1)
+    if S % span:
+        raise ValueError(f"step: {rounds} rounds need S a multiple of "
+                         f"{span}, got S = {S}")
+    nout = S // span
+    if off < 0 or off + nout > total:
+        raise ValueError(f"step: write block [{off}, {off + nout}) outside "
+                         f"the pool of {total} slots")
     if ia is None:
         lo, hi = base, base + 2 * S
         if ib is not None or lo < 0 or hi > total:
@@ -343,15 +426,15 @@ def step(pool: torch.Tensor, off: int, S: int, curve: str, ia=None, ib=None,
         lo, hi = 0, read_hi
         if ib is None or read_hi is None:
             raise ValueError("step: index operands need ia, ib and read_hi")
-    if lo < off + S and off < hi:
+    if lo < off + nout and off < hi:
         raise ValueError(f"step: slots read [{lo}, {hi}) overlap the slots "
-                         f"written [{off}, {off + S})")
+                         f"written [{off}, {off + nout})")
     if pool.device.type == "cpu":
         if ia is not None and S and not (
                 0 <= min(int(ia.min()), int(ib.min()))
                 and max(int(ia.max()), int(ib.max())) < read_hi):
             raise ValueError(f"step: slot ids outside [0, {read_hi})")
-        return step_plain(pool, off, S, curve, ia, ib, base, mixed)
+        return step_plain(pool, off, S, curve, ia, ib, base, mixed, rounds)
     tensors, shapes = [pool], [(rows(curve), total)]
     if ia is not None:
         tensors += [ia, ib]
@@ -361,6 +444,6 @@ def step(pool: torch.Tensor, off: int, S: int, curve: str, ia=None, ib=None,
                 int(mixed), pool.data_ptr(),
                 None if ia is None else ia.data_ptr(),
                 None if ib is None else ib.data_ptr(), base, off, S, total,
-                device=dev)
+                rounds, device=dev)
     cuda.LAUNCHES["step"] += 1
     return pool

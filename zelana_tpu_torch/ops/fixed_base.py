@@ -11,10 +11,12 @@ complete projective additions:
   2. Scalars upload as their 32 bytes each, (8, n) words of the standard
      form. Digits and table slot ids derive on the device; point i's 32
      window slots sit adjacently, so round 0 adds windows 2k and 2k + 1 of
-     every point (by slot id) and round r of 1..4 adds lanes 2j and 2j + 1
-     of round r-1's block. Each round is one `step` launch
-     (curve_kernels.step, in place in the pool). Zero digits read the
-     identity slot, so the zero scalar yields the point at infinity.
+     every point (by slot id) and round r of 1..4 adds outputs 2j and
+     2j + 1 of round r-1. The five rounds are one `step` launch
+     (curve_kernels.step with rounds=5, one thread per point's subtree),
+     and only the n sums are written to the pool after the head. Zero
+     digits read the identity slot, so the zero scalar yields the point at
+     infinity.
   3. The n projective results come back to the host and go affine with one
      batched inversion in C (r1cs/native_synth.proj_to_affine).
 
@@ -41,7 +43,7 @@ N_WINDOWS = 32
 ROW = (1 << WINDOW_BITS) - 1  # 255 non-zero digits per window
 N_TABLE = N_WINDOWS * ROW  # 8160 leaf points
 ROUNDS = 5  # log2(N_WINDOWS)
-FB_CHUNK = 1 << 15  # scalars per device dispatch (G1 pool ~100 MB)
+FB_CHUNK = 1 << 15  # scalars per device dispatch
 
 
 # ---------------------------------------------------------------------------
@@ -110,19 +112,6 @@ def prepare_table_g2(base, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _slot_plan(n: int):
-    """Write offsets and sizes: round r writes S_r = n * 32 / 2^(r+1) slots
-    after the table head; returns (bases, sizes, total slots)."""
-    bases, sizes = [], []
-    off, size = N_TABLE + 1, n * N_WINDOWS // 2
-    for _ in range(ROUNDS):
-        bases.append(off)
-        sizes.append(size)
-        off += size
-        size //= 2
-    return bases, sizes, off
-
-
 def _slot_ids(words: torch.Tensor):
     """(8, n) int32 scalar words -> the round-0 operand slot ids: for point
     i, entry 16 i + k reads window 2k (ia) and window 2k + 1 (ib)."""
@@ -139,15 +128,13 @@ def _run_fb(head: torch.Tensor, words: torch.Tensor, curve: str):
     """head: (C, N_TABLE + 1) pool head; words: (8, n) int32 scalars.
     Returns the (C, n) projective words of scalar_i * base."""
     n = words.shape[1]
-    bases, sizes, total = _slot_plan(n)
-    pool = torch.empty((head.shape[0], total), dtype=torch.int32,
+    pool = torch.empty((head.shape[0], N_TABLE + 1 + n), dtype=torch.int32,
                        device=head.device)
     pool[:, :N_TABLE + 1] = head
     ia, ib = _slot_ids(words)
-    CK.step(pool, bases[0], sizes[0], curve, ia, ib, read_hi=N_TABLE + 1)
-    for r in range(1, ROUNDS):
-        CK.step(pool, bases[r], sizes[r], curve, base=bases[r - 1])
-    return pool[:, bases[-1]:bases[-1] + n]
+    CK.step(pool, N_TABLE + 1, n * N_WINDOWS // 2, curve, ia, ib,
+            read_hi=N_TABLE + 1, rounds=ROUNDS)
+    return pool[:, N_TABLE + 1:]
 
 
 def _finish_fb(g: np.ndarray, curve: str) -> PointArray:

@@ -11,10 +11,10 @@
 3. The per-lane partials of each bucket form a second key-sorted stream,
    reduced by a projective run-scan (the level-2 scan, reading the level-1
    emit by position); K2 layers of what is left merge into the dense
-   (32 windows x 256 digits) bucket layout by K2-1 complete adds
-   (curve_kernels.pairs_add).
+   (32 windows x 256 digits) bucket layout by K2-1 complete adds.
 4. sum_d d * S_d splits by digit bits into 8 x 32 bit-subset sums: a fixed
-   gather and a 7-level pairwise tree of pairs_add.
+   gather and a 7-level pairwise tree. Step 3's merge and step 4 are the
+   bucket tail (curve_kernels.bucket_tail), gathers included.
 5. Host: bit and window Horner in Jacobian big ints, one inversion
    (_finish_host).
 
@@ -39,7 +39,6 @@ by one host scalar multiply (_inf_correction).
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,9 +58,9 @@ LANES2 = 8192  # level-2 stream lanes at most
 LANES2_MIN = 32
 K2_BOUND = 8  # dense merge layers the level-2 width aims to stay within
 KMAX = 64  # dense merge layers the native scheduler accepts
-SCAN_BITS = 8
-SCAN_WINDOWS = 32  # ceil(254 / 8)
-SCAN_BUCKETS = 1 << SCAN_BITS
+SCAN_BITS = CK.SUBSET_BITS  # the digit layout the bucket tail is built for
+SCAN_WINDOWS = CK.SUBSET_WINDOWS
+SCAN_BUCKETS = CK.SUBSET_BUCKETS
 CHUNK_N = 1 << 16  # points per segment: ids are 16-bit
 MAX_INFLIGHT = 4  # segments queued on the device at once
 
@@ -181,19 +180,6 @@ def _upload(s: Schedule, device) -> dict:
             "flag2": t(s.flag2), "dense": t(s.dense_idx.reshape(-1))}
 
 
-@functools.lru_cache(maxsize=None)
-def _subset_idx(device: torch.device) -> torch.Tensor:
-    """Fixed gather of the bit-subset groups: (8 bits x 32 windows x 128
-    digits with the bit set) from the dense (32 * 256) bucket layout; group
-    order t * 32 + w matches _finish_host."""
-    idx = np.zeros((SCAN_BITS, SCAN_WINDOWS, SCAN_BUCKETS // 2), np.int32)
-    for t in range(SCAN_BITS):
-        ds = np.flatnonzero((np.arange(SCAN_BUCKETS) >> t) & 1)
-        for wi in range(SCAN_WINDOWS):
-            idx[t, wi] = wi * SCAN_BUCKETS + ds
-    return torch.from_numpy(idx.reshape(-1)).to(device)
-
-
 # ---------------------------------------------------------------------------
 # device program
 # ---------------------------------------------------------------------------
@@ -206,20 +192,8 @@ def _device_msm(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
     emit = CK.runscan(pool, d["pid"], d["flag"], curve)
     emit2 = CK.runscan(emit.view(C, -1), d["pos2"], d["flag2"], curve,
                        proj_in=True).view(C, -1)
-    nb = SCAN_WINDOWS * SCAN_BUCKETS
-    K = d["dense"].numel() // nb
-    dense = emit2.index_select(1, d["dense"]).view(C, K, nb)
-    merged = dense[:, 0].contiguous()
-    for k in range(1, K):
-        merged = CK.pairs_add(merged, dense[:, k].contiguous(), curve)
-    h = SCAN_BUCKETS // 2
-    x = merged.index_select(1, _subset_idx(pool.device)).view(C, -1, h)
-    while h > 1:
-        h //= 2
-        a = x[:, :, :h].contiguous().view(C, -1)
-        b = x[:, :, h:2 * h].contiguous().view(C, -1)
-        x = CK.pairs_add(a, b, curve).view(C, -1, h)
-    return x[:, :, 0]
+    K = d["dense"].numel() // (SCAN_WINDOWS * SCAN_BUCKETS)
+    return CK.bucket_tail(emit2, d["dense"], K, curve)
 
 
 # ---------------------------------------------------------------------------
