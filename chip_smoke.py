@@ -16,9 +16,12 @@ Phases (any failure exits non-zero and prints no result):
      S = 2^14 by slot ids and by pairing in one round and in five, and
      keygen's five step rounds in one launch on a 32,768-scalar chunk
      (G1, G2) against five single plain rounds; mimc_permute at 2^14 (91
-     rounds, and 3 rounds of the JAX test's constants); inv_fwd, inv_bwd
-     and fermat at n = 2^16 and n = 20,480 (a partial last tile), Fr and
-     Fq, whole outputs compared;
+     rounds, and 3 rounds of the JAX test's constants); inv_fwd at
+     n = 2^16 and 20,480 (a partial last tile), inv_bwd at the levels of a
+     2^20 inversion (2^20, 2^16, 4,096) and at 20,480 and 19,456, both Fr
+     and Fq, and inv_base over Fr, Fq and BLS12-381 Fr at 1,024 and 2^16
+     elements with 0, 1, 2, p - 1 and R mod p, whole outputs compared;
+     inv_bwd timed per level, inv_base at 1,024 Fr and on one warp;
   `hashes`: hash2_batch at 2^20 leaves (one level of a 2^21-leaf account
      tree), hash_n_batch with 3 and 5 columns at 2^16, Poseidon BN254 8/56
      over two columns at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12; 256
@@ -26,7 +29,9 @@ Phases (any failure exits non-zero and prints no result):
   `inversion`: mont_batch_inv_nested over Fr at 2^20 and 20,480 and over
      Fq at 2^20 with seeded zeros: the whole output equal to the plain
      version on the card and a * inv == 1 (0 at the zeros) by the mont_mul
-     kernel; launches per call and times;
+     kernel; launches per call (3 inv_fwd, 3 inv_bwd, 1 inv_base at 2^20)
+     and times; one 2^20 Fr inversion under torch.profiler, device time by
+     kernel with the torch ops around the kernels apart;
   3. `slice`: prove and prove_many over the L2 block circuit with
      artifacts/l2_dummy_pk.npz, every proof checked by verify, the
      batch_id = 1 proof byte-equal to the vector the JAX package recorded;
@@ -56,13 +61,14 @@ Phases (any failure exits non-zero and prints no result):
      of the chunk's z schedules;
   7. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen, mimc_permute on the
-     hashes, inv_fwd / inv_bwd / fermat on the inversions), the card, the
+     hashes, inv_fwd / inv_bwd / inv_base on the inversions), the card, the
      result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -189,6 +195,34 @@ def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_ms(torch, fn, reps: int = 20, tries: int = 3) -> float:
+    """Mean device time per run of fn's kernels, from torch.profiler's
+    device events over `reps` runs after a warm-up. CUDA events around
+    back-to-back runs measure the host's launch rate instead when a kernel
+    runs shorter than its wrapper's launch takes (the inversion's small
+    levels). Now and then the profiler returns a window this short (a few
+    tenths of a millisecond on the device) without its device events; the
+    window is then profiled again, `tries` times in all, each miss
+    logged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type != DeviceType.CPU for e in prof.key_averages()):
+            break
+        log(f"  the profile held no device events (try {attempt} of "
+            f"{tries})")
+    return sum(e.self_device_time_total
+               for e in device_events(prof)) / 1e3 / reps
 
 
 def compare(torch, got, want):
@@ -417,7 +451,7 @@ def phase_kernels(torch, dev, report) -> list:
                           st["bound_by"]))
     report["step_keygen_chunk"] = st
     kernels += _mimc_kernel(torch, dev, rng, check)
-    kernels += _inversion_kernels(torch, dev, rng, check)
+    kernels += _inversion_kernels(torch, dev, rng, check, report)
     for k in kernels:
         k["mismatches"] = mismatches[k["name"]]
         log(f"  {k['name']}: {k['ms']:.4f} ms kernel, {k['plain_ms']:.3f} ms "
@@ -523,15 +557,28 @@ def fermat_muls(modulus: int) -> int:
     return e.bit_length() - 1 + bin(e).count("1") - 1
 
 
+# 32-bit integer operations of inv_base_kernel's safegcd per element, from
+# field.cuh's source (a 32x32 -> 64-bit product or a 64-bit add or shift
+# counts 2): 20 batches of 30 divsteps (27 operations each), update_de
+# (9 limbs x (6 products, 6 adds, mask and shift) + the md / me fix-up)
+# and update_fg (9 x (4 products, 4 adds, mask and shift)); then the
+# normalisation, the limb conversions and one Montgomery product by R^3
+SAFEGCD_OPS = 20 * (30 * 27 + (9 * 30 + 12) + 9 * 22) + 60 + 40 + 2 * MUL_OPS
+
+
 def inv_work(name: str, n: int, spec):
     """(bytes moved, int32 operations) of one inversion kernel over n
     elements: inv_fwd reads a and writes the prefixes and the chain totals
     with one multiply per element, inv_bwd reads a, the prefixes and the
-    totals' inverses and writes the result with two, fermat reads and writes
-    each element with one square-and-multiply chain."""
+    totals' inverses and writes the result with two, inv_base reads and
+    writes each element with the safegcd's SAFEGCD_OPS operations
+    ("inv_base ladder" counts those of the a^(p-2) ladder, the function's
+    plain definition and the bound of earlier runs)."""
     from zelana_tpu_torch.ops import field_kernels as FK
 
-    if name == "fermat":
+    if name == "inv_base":
+        return 2 * n * 32, n * SAFEGCD_OPS
+    if name == "inv_base ladder":
         return 2 * n * 32, n * fermat_muls(spec.modulus) * MUL_OPS
     chains = FK.inv_chains(n)
     if name == "inv_fwd":
@@ -539,20 +586,59 @@ def inv_work(name: str, n: int, spec):
     return (3 * n + chains) * 32, 2 * n * MUL_OPS
 
 
-def _inversion_kernels(torch, dev, rng, check) -> list:
-    """inv_fwd, inv_bwd and fermat against their plain versions at
-    n = 2^16 and n = 20,480 (one whole tile and a partial one of 4,096), Fr
-    and Fq, whole outputs compared; bwd and plain bwd get the same inputs.
-    Times: fwd and bwd at 2^16, fermat at its recursion-base shape (1,024
-    elements), each summed over Fr and Fq."""
+# the levels of one 2^20 inversion, and the partial last tiles
+INV_BWD_PATH = (1 << 20, 1 << 16, 4096)
+INV_BWD_EDGE = (20480, 19456)
+# inv_bwd's two mappings timed against each other across the launcher's
+# threshold (8 tiles: 2^17 elements)
+INV_BWD_SWEEP = (4096, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+
+
+def _inversion_kernels(torch, dev, rng, check, report) -> list:
+    """The three inversion kernels against their plain versions on the
+    same inputs, whole outputs compared: inv_fwd at n = 2^16 and 20,480
+    (Fr and Fq); inv_bwd over Fr and Fq at the levels of a 2^20 inversion
+    (2^20 elements: two threads a chain; 2^16 and 4,096: the scan) and at
+    20,480 and 19,456 (partial last tiles of four and three steps); inv_base
+    over Fr, Fq and BLS12-381 Fr at 1,024 and 2^16 random elements and the
+    edges 0, 1, 2, p - 1 and R mod p. Times: inv_fwd at 2^16 (Fr + Fq, as in
+    earlier runs), inv_bwd per level of a 2^20 Fr inversion (their sum is
+    its entry), inv_base at its recursion-base shape, 1,024 Fr, and on one
+    warp (32 elements: the one-thread latency floor); the kernels' device
+    time from the profiler, CUDA events beside it (`events_ms`). Both of
+    inv_bwd's thread mappings, forced, checked and timed over Fr at
+    INV_BWD_SWEEP: the evidence for the launcher's threshold."""
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
 
-    err = {"inv_fwd": 0, "inv_bwd": 0, "fermat": 0}
-    t = {k: {"ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0} for k in err}
+    rep = report["inversion_kernels"] = {}
+    err = {"inv_fwd": 0, "inv_bwd": 0, "inv_base": 0}
+    t = {k: {"ms": 0.0, "events": 0.0, "plain": 0.0, "bytes": 0.0,
+             "ops": 0.0} for k in err}
+
+    def timed(name, key, fn, pfn, width, spec):
+        """ms: the kernel's device time (profiler); events_ms: CUDA events
+        around back-to-back calls, the host's launches included."""
+        ms = device_ms(torch, fn)
+        events = cuda_ms(torch, fn, 20)
+        plain = cuda_ms(torch, pfn, 1, False)
+        nbytes, ops = inv_work(name, width, spec)
+        bms, by = bound_ms(nbytes, ops)
+        rep[key] = {"ms": ms, "events_ms": events, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by}
+        log(f"  {key}: {ms:.4f} ms on the device ({events:.4f} ms by CUDA "
+            f"events around back-to-back calls), plain {plain:.2f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        t[name]["ms"] += ms
+        t[name]["events"] += events
+        t[name]["plain"] += plain
+        t[name]["bytes"] += nbytes
+        t[name]["ops"] += ops
+
     for spec, fname in ((L.FR, "Fr"), (L.FQ, "Fq")):
+        top = spec.modulus >> 224
         for n in (1 << 16, 20480):
-            a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+            a = rand_words(torch, rng, top, n, dev)
             pre, tot = FK.inv_fwd(a, spec)
             ppre, ptot = FK.inv_fwd_plain(a, spec)
             err["inv_fwd"] = max(err["inv_fwd"],
@@ -560,39 +646,88 @@ def _inversion_kernels(torch, dev, rng, check) -> list:
                                        ppre),
                                  check(f"inv_fwd {fname} {n} totals", tot,
                                        ptot))
-            tinv = FK.fermat(tot, spec)
-            err["fermat"] = max(err["fermat"], check(
-                f"fermat {fname} {tot.shape[1]}", tinv,
-                FK.fermat_plain(tot, spec)))
+            if n == 1 << 16:
+                timed("inv_fwd", f"inv_fwd {fname} {n}",
+                      lambda: FK.inv_fwd(a, spec),
+                      lambda: FK.inv_fwd_plain(a, spec), n, spec)
+        for n in INV_BWD_PATH + INV_BWD_EDGE:
+            a, pre = (rand_words(torch, rng, top, n, dev) for _ in range(2))
+            tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
             err["inv_bwd"] = max(err["inv_bwd"], check(
                 f"inv_bwd {fname} {n}", FK.inv_bwd(a, pre, tinv, spec),
                 FK.inv_bwd_plain(a, pre, tinv, spec)))
-            if n != 1 << 16:
-                continue
-            err["fermat"] = max(err["fermat"], check(
-                f"fermat {fname} {n}", FK.fermat(a, spec),
-                FK.fermat_plain(a, spec)))
+            if spec is L.FR and n in INV_BWD_PATH:
+                timed("inv_bwd", f"inv_bwd Fr {n}",
+                      lambda: FK.inv_bwd(a, pre, tinv, spec),
+                      lambda: FK.inv_bwd_plain(a, pre, tinv, spec), n, spec)
+    for spec, fname in ((L.FR, "Fr"), (L.FQ, "Fq"),
+                        (L.BLS_FR, "BLS12-381 Fr")):
+        p = spec.modulus
+        edges = L.to_tensor(L.to_words([0, 1, 2, p - 1, (1 << 256) % p]),
+                            dev)
+        for n in (FK.INV_BLOCK, 1 << 16):
+            a = torch.cat([rand_words(torch, rng, p >> 224, n, dev), edges],
+                          dim=1)
+            err["inv_base"] = max(err["inv_base"], check(
+                f"inv_base {fname} {n} + 5 edges", FK.inv_base(a, spec),
+                FK.inv_base_plain(a, spec)))
+        if spec is L.FR:
             base = a[:, :FK.INV_BLOCK].contiguous()
-            for name, fn, pfn, width in (
-                    ("inv_fwd", lambda: FK.inv_fwd(a, spec),
-                     lambda: FK.inv_fwd_plain(a, spec), n),
-                    ("inv_bwd", lambda: FK.inv_bwd(a, pre, tinv, spec),
-                     lambda: FK.inv_bwd_plain(a, pre, tinv, spec), n),
-                    ("fermat", lambda: FK.fermat(base, spec),
-                     lambda: FK.fermat_plain(base, spec), FK.INV_BLOCK)):
-                t[name]["ms"] += cuda_ms(torch, fn, 20)
-                t[name]["plain"] += cuda_ms(torch, pfn, 1, False)
-                nbytes, ops = inv_work(name, width, spec)
-                t[name]["bytes"] += nbytes
-                t[name]["ops"] += ops
+            timed("inv_base", f"inv_base Fr {FK.INV_BLOCK}",
+                  lambda: FK.inv_base(base, spec),
+                  lambda: FK.inv_base_plain(base, spec), FK.INV_BLOCK, spec)
+            ladder = bound_ms(*inv_work("inv_base ladder", FK.INV_BLOCK,
+                                        spec))
+            warp = a[:, :32].contiguous()
+            floor = device_ms(torch, lambda: FK.inv_base(warp, spec))
+            rep["inv_base ladder"] = {
+                "per_element": fermat_muls(p) * MUL_OPS,
+                "bound_ms": ladder[0], "bound_by": ladder[1],
+                "one_warp_ms": floor}
+            log(f"  inv_base: {SAFEGCD_OPS} integer operations an element "
+                f"(the ladder: {fermat_muls(p) * MUL_OPS} multiplies, bound "
+                f"at 1,024 {ladder[0]:.5f} ms ({ladder[1]})); one warp (32 "
+                f"elements): {floor:.4f} ms")
+    _inv_bwd_mappings(torch, dev, rng, check, rep, err)
     out = []
-    for name, line in (("inv_fwd", 247), ("inv_bwd", 274), ("fermat", 228)):
+    for name, line in (("inv_fwd", 247), ("inv_bwd", 274), ("inv_base", 228)):
         bms, by = bound_ms(t[name]["bytes"], t[name]["ops"])
         out.append(_entry(name, "zelana_tpu_torch/csrc/field_kernels.cu",
                           f"zelana_tpu/ops/pallas_field.py:{line}",
                           err[name], t[name]["ms"], t[name]["plain"], bms,
                           by))
+        out[-1]["events_ms"] = t[name]["events"]
+    out[-1]["ladder_bound_ms"] = rep["inv_base ladder"]["bound_ms"]
+    out[-1]["ladder_bound_by"] = rep["inv_base ladder"]["bound_by"]
     return out
+
+
+def _inv_bwd_mappings(torch, dev, rng, check, rep, err) -> None:
+    """inv_bwd's two thread mappings forced at each n of INV_BWD_SWEEP over
+    Fr: each whole output against the plain version, and each mapping's
+    device time beside the one the launcher picks."""
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    spec, top = L.FR, L.FR.modulus >> 224
+    res = rep["inv_bwd mappings"] = {}
+    for n in INV_BWD_SWEEP:
+        a, pre = (rand_words(torch, rng, top, n, dev) for _ in range(2))
+        tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
+        want = FK.inv_bwd_plain(a, pre, tinv, spec)
+        ms = {}
+        for scan, what in ((False, "two threads a chain"), (True, "scan")):
+            fn = functools.partial(FK.inv_bwd_mapped, a, pre, tinv, spec, scan)
+            err["inv_bwd"] = max(err["inv_bwd"], check(
+                f"inv_bwd Fr {n}, {what} forced", fn(), want))
+            ms[what] = device_ms(torch, fn)
+        # the launcher's threshold: kBwdScanBelow chains (8 tiles)
+        picked = "scan" if FK.inv_chains(n) < 8 * FK.INV_BLOCK else \
+            "two threads a chain"
+        res[str(n)] = {**ms, "picked": picked}
+        log(f"  inv_bwd Fr {n}: two threads a chain "
+            f"{ms['two threads a chain']:.4f} ms, scan {ms['scan']:.4f} ms "
+            f"(device time); the launcher picks the {picked}")
 
 
 def _entry(name, source, replaces, err, ms, plain, bms, by) -> dict:
@@ -731,7 +866,10 @@ def phase_inversion(torch, dev, report) -> dict:
         launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
         if path is None:
             path = {k: cuda.LAUNCHES[k] for k in ("inv_fwd", "inv_bwd",
-                                                  "fermat")}
+                                                  "inv_base")}
+            if path != {"inv_fwd": 3, "inv_bwd": 3, "inv_base": 1}:
+                raise AssertionError(f"{name}: launches {path}, expected 3 "
+                                     f"inv_fwd, 3 inv_bwd, 1 inv_base")
         # the plain recursion on the same zero-swapped input (every n here
         # is a multiple of 1,024: no padding)
         one = L.broadcast(spec.one_mont, n, dev)
@@ -752,30 +890,47 @@ def phase_inversion(torch, dev, report) -> dict:
             f"launches {launches}; equal to the plain version, a * inv == 1 "
             f"({len(zeros)} zeros kept)")
         if n == 1 << 20 and spec is L.FR:
-            _inversion_levels(torch, a, spec, rep)
+            _inversion_profile(torch, a, spec, rep)
     return path
 
 
-def _inversion_levels(torch, a, spec, rep) -> None:
-    """Times of the first level's inv_fwd / inv_bwd at 2^20 and of the
-    fermat base (1,024 elements) beside their bounds."""
+def _inversion_profile(torch, a, spec, rep) -> None:
+    """One 2^20 inversion under torch.profiler: device time by kernel, the
+    port's kernels apart from the torch elementwise ops around them (the
+    zero mask, the selects); and the first level's inv_fwd by CUDA events
+    beside its bound (inv_bwd's levels are timed in `kernels`)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
 
     n = a.shape[1]
     safe = L.select(L.is_zero(a), L.broadcast(spec.one_mont, n, a.device), a)
-    pre, tot = FK.inv_fwd(safe, spec)
-    tinv = L.mont_batch_inv_nested(tot, spec)
-    base = tot[:, :FK.INV_BLOCK].contiguous()
-    for name, fn, width in (
-            ("inv_fwd", lambda: FK.inv_fwd(safe, spec), n),
-            ("inv_bwd", lambda: FK.inv_bwd(safe, pre, tinv, spec), n),
-            ("fermat", lambda: FK.fermat(base, spec), FK.INV_BLOCK)):
-        ms = cuda_ms(torch, fn, 20)
-        bms, by = bound_ms(*inv_work(name, width, spec))
-        key = f"{name} {width}"
-        rep[key] = {"ms": ms, "bound_ms": bms, "bound_by": by}
-        log(f"    {key}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    ms = cuda_ms(torch, lambda: FK.inv_fwd(safe, spec), 20)
+    bms, by = bound_ms(*inv_work("inv_fwd", n, spec))
+    rep[f"inv_fwd {n}"] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+    log(f"    inv_fwd {n}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    L.mont_batch_inv_nested(a, spec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        L.mont_batch_inv_nested(a, spec)
+        torch.cuda.synchronize()
+    ours = ("inv_fwd_kernel", "inv_bwd_kernel", "inv_bwd_scan_kernel",
+            "inv_base_kernel")
+    by_kernel = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                        for e in device_events(prof)
+                        if e.self_device_time_total > 0),
+                       key=lambda k: -k[2])
+    kern = sum(t for k, _, t in by_kernel if any(o in k for o in ours))
+    other = sum(t for k, _, t in by_kernel if not any(o in k for o in ours))
+    rep[f"profile {n}"] = {"kernels_ms": kern, "torch_ops_ms": other,
+                           "by_kernel": [(k[:90], c, t)
+                                         for k, c, t in by_kernel]}
+    log(f"    one {n} inversion under the profiler: the port's kernels "
+        f"{kern:.4f} ms, torch ops around them {other:.4f} ms")
+    for k, c, t in by_kernel:
+        log(f"      {t:8.4f} ms  x{c:<3d} {k[:80]}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,22 @@
 // A CPU stand-in for the CUDA runtime, for tests/test_torch_cuda_emulation.py:
-// it lets g++ build the port's point kernels (zelana_tpu_torch/csrc) and run
-// them on host memory. Each CUDA thread of a block is a fiber (ucontext) on
-// the calling thread; the blocks of a launch run one after another, and
+// it lets g++ build the port's kernels (zelana_tpu_torch/csrc) and run them
+// on host memory. Each CUDA thread of a block is a fiber (ucontext) on the
+// calling thread; the blocks of a launch run one after another, and
 // __syncthreads() switches to the next fiber, so one round over the block's
 // fibers brings every thread to the same barrier (the kernels' barriers are
-// uniform). __shared__ arrays are static: one copy, which the sequential
-// blocks share. The test rewrites each kernel<<<grid, block, bytes,
-// stream>>>(args) into emu_launch(grid, block, bytes, stream, [&]{
-// kernel(args); }) and field.cuh's PTX carry-chain primitives into the C++
-// below (the flag in emu_cf; no chain spans a barrier).
+// uniform; the order of the fibers alternates between rounds). __shared__
+// arrays are static: one copy, which the sequential blocks share. The test
+// rewrites each kernel<<<grid, block, bytes, stream>>>(args) into
+// emu_launch(grid, block, bytes, stream, [&]{ kernel(args); }) and
+// field.cuh's PTX primitives into the C++ below: the carry flag in emu_cf
+// (no chain spans a barrier), and each thread's asynchronous copies held
+// back until a wait_group releases their group, so a copy read before its
+// wait and barrier reads stale shared memory.
 #pragma once
 #include <ucontext.h>
 
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <vector>
 
@@ -24,6 +28,7 @@
 #define __constant__ static
 #define __launch_bounds__(...)
 #define __restrict__
+#define __align__(n) __attribute__((aligned(n)))
 
 struct emu_dim3 {
     unsigned x = 0, y = 0, z = 0;
@@ -32,7 +37,12 @@ inline emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+    cudaSuccess = 0,
+    cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+    cudaErrorInvalidValue = 1,
+    cudaErrorMisalignedAddress = 716
+};
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {
@@ -45,6 +55,16 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 
 inline std::vector<uint32_t> emu_dyn;  // the launch's dynamic shared memory
 inline uint32_t emu_cf;                // the PTX carry flag (CC.CF)
+
+struct emu_copy {
+    void* dst;
+    const void* src;
+};
+struct emu_async {  // one thread's cp.async state
+    std::vector<emu_copy> open;                 // not yet committed
+    std::vector<std::vector<emu_copy>> groups;  // committed, oldest first
+};
+inline std::vector<emu_async> emu_asyncs;  // per thread of the block
 
 inline ucontext_t emu_sched;
 inline std::vector<ucontext_t> emu_fibers;
@@ -73,6 +93,7 @@ inline void emu_launch(unsigned grid, unsigned block, int bytes,
     for (auto& st : emu_stacks) st.resize(1 << 16);
     for (unsigned b = 0; b < grid; ++b) {
         blockIdx.x = b;
+        emu_asyncs.assign(block, {});
         std::vector<char> finished(block, 0);
         for (unsigned t = 0; t < block; ++t) {
             getcontext(&emu_fibers[t]);
@@ -81,8 +102,12 @@ inline void emu_launch(unsigned grid, unsigned block, int bytes,
             emu_fibers[t].uc_link = &emu_sched;
             makecontext(&emu_fibers[t], emu_entry, 0);
         }
-        for (unsigned live = block; live;) {
-            for (unsigned t = 0; t < block; ++t) {
+        // between two barriers the fibers run in turn, in thread order on
+        // even passes and in reverse on odd ones, so a read that misses a
+        // barrier sees the wrong value in one of the two orders
+        for (unsigned live = block, pass = 0; live; ++pass) {
+            for (unsigned k = 0; k < block; ++k) {
+                const unsigned t = pass & 1 ? block - 1 - k : k;
                 if (finished[t]) continue;
                 emu_cur = t;
                 threadIdx.x = t;
@@ -99,6 +124,22 @@ inline void emu_launch(unsigned grid, unsigned block, int bytes,
 
 // field.cuh's ptx:: primitives, flag for flag
 namespace emu_ptx {
+inline void cp_async16(void* smem, const void* gmem) {
+    emu_asyncs[emu_cur].open.push_back({smem, gmem});
+}
+inline void cp_async_commit() {
+    emu_async& a = emu_asyncs[emu_cur];
+    a.groups.push_back(std::move(a.open));
+    a.open.clear();
+}
+template <int N>
+void cp_async_wait() {
+    emu_async& a = emu_asyncs[emu_cur];
+    while (a.groups.size() > (size_t)N) {
+        for (const emu_copy& c : a.groups.front()) std::memcpy(c.dst, c.src, 16);
+        a.groups.erase(a.groups.begin());
+    }
+}
 typedef unsigned long long u64;
 inline uint32_t add_cc(uint32_t a, uint32_t b) {
     u64 s = (u64)a + b;

@@ -1,12 +1,15 @@
-"""The port's point kernels (zelana_tpu_torch/csrc/curve_kernels.cu) built
-with g++ over a CPU stand-in for the CUDA runtime (tests/cuda_emu: a fiber
-per CUDA thread, barriers, shared memory, the PTX carry flag) and
-run on host memory, against their plain PyTorch versions: `step` in one
-round and in several (one thread per subtree), general and mixed, and the
-bucket tail's two kernels (six threads per complete add, four barriers an
-add). This holds the kernels' indexing, their barriers and their shared
-memory before a card sees them; the card runs the same comparison in
-chip_smoke.py. Equality is exact."""
+"""The port's kernels (zelana_tpu_torch/csrc/curve_kernels.cu and
+field_kernels.cu) built with g++ over a CPU stand-in for the CUDA runtime
+(tests/cuda_emu: a fiber per CUDA thread, barriers, shared memory, the PTX
+carry flag, asynchronous copies that land only at their wait) and run on
+host memory, against their plain PyTorch versions: `step` in one round and
+in several (one thread per subtree), general and mixed, the bucket tail's
+two kernels (six threads per complete add, four barriers an add), the
+safegcd base inverse over the three fields, and inv_bwd in both of its
+thread mappings (two threads a chain behind a cp.async ring; a suffix scan
+over a thread per element). This holds the kernels' indexing, their
+barriers and their shared memory before a card sees them; the card runs
+the same comparison in chip_smoke.py. Equality is exact."""
 
 import ctypes
 import os
@@ -20,6 +23,7 @@ import torch
 from zelana_tpu_torch.fields.bn254 import P
 from zelana_tpu_torch.ops import curve_kernels as CK
 from zelana_tpu_torch.ops import cuda
+from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as L
 
 torch.set_num_threads(1)  # many small int64 ops: threads only contend
@@ -27,9 +31,26 @@ torch.set_num_threads(1)  # many small int64 ops: threads only contend
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
-@pytest.fixture(scope="module")
-def lib():
-    """curve_kernels.cu rewritten for the stand-in and built with g++."""
+def _emu_launches(src: str) -> tuple:
+    """kernel<...><<<cfg>>>(args); -> emu_launch(cfg, [&] { kernel(args);
+    }); the arguments end at the parenthesis that closes them, so a launch
+    inside a macro argument (ZT_BY_FIELD) converts too."""
+    out, pos, count = [], 0, 0
+    for m in re.finditer(r"(\w+(?:<[^<>;]*>)?)\s*<<<([^>]*)>>>\s*\(", src):
+        if m.start() < pos:
+            continue
+        depth, j = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(src[j], 0)
+            j += 1
+        out += [src[pos:m.start()], f"emu_launch({m.group(2)}, [&] {{ "
+                f"{m.group(1)}({src[m.end():j - 1]}); }})"]
+        pos, count = j, count + 1
+    return "".join(out) + src[pos:], count
+
+
+def _build(name: str, launches: int) -> ctypes.CDLL:
+    """csrc/<name>.cu rewritten for the stand-in and built with g++."""
     out = os.path.join(cuda.BUILD, "emu")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(cuda.CSRC, "field.cuh")) as f:
@@ -37,25 +58,34 @@ def lib():
     field, n = re.subn(r"namespace ptx \{.*\}  // namespace ptx",
                        "namespace ptx = emu_ptx;", field, flags=re.S)
     assert n == 1, "field.cuh: no ptx namespace to replace"
-    with open(os.path.join(cuda.CSRC, "curve_kernels.cu")) as f:
+    with open(os.path.join(cuda.CSRC, f"{name}.cu")) as f:
         src = f.read()
-    src, n = re.subn(r"(\w+<[^<>]*>)\s*<<<([^>]*)>>>\s*\(([^;]*)\);",
-                     r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert n >= 10, "curve_kernels.cu: kernel launches not found"
-    src = src.replace("extern __shared__ u32 sm[];",
-                      "u32* sm = emu_dyn.data();")
-    for name, text in (("field.cuh", field), ("curve_kernels.cpp", src)):
-        with open(os.path.join(out, name), "w") as f:
+    src, n = _emu_launches(src)
+    assert n >= launches, f"{name}.cu: kernel launches not found"
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = (\1*)emu_dyn.data();", src)
+    for fname, text in (("field.cuh", field), (f"{name}.cpp", src)):
+        with open(os.path.join(out, fname), "w") as f:
             f.write(text)
-    so = os.path.join(out, "libcurve_kernels_emu.so")
+    so = os.path.join(out, f"lib{name}_emu.so")
     tmp = f"{so}.tmp{os.getpid()}"
     subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC",
                     "-w", f"-I{EMU}", f"-I{out}", "-o", tmp,
-                    os.path.join(out, "curve_kernels.cpp")], check=True)
+                    os.path.join(out, f"{name}.cpp")], check=True)
     os.replace(tmp, so)
     cdll = ctypes.CDLL(so)
     cuda._declare(cdll)
     return cdll
+
+
+@pytest.fixture(scope="module")
+def lib():
+    return _build("curve_kernels", 10)
+
+
+@pytest.fixture(scope="module")
+def flib():
+    return _build("field_kernels", 7)
 
 
 def _rand_words(rng, C: int, n: int) -> torch.Tensor:
@@ -109,3 +139,67 @@ def test_emulated_bucket_tail_matches_plain(lib, curve, K):
     assert lib.zt_bucket_tree(cid, merged.data_ptr(), nb, out.data_ptr(),
                               None) == 0
     assert torch.equal(out, CK.bucket_tail_plain(emit2, dense, K, curve))
+
+
+FIELDS = {"Fq": L.FQ, "Fr": L.FR, "BLS12-381 Fr": L.BLS_FR}
+
+
+def _field_words(rng, spec: L.FieldSpec, n: int) -> torch.Tensor:
+    """(8, n) words of random canonical elements (top word below the
+    modulus's)."""
+    w = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    w[7] %= spec.modulus >> 224
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_emulated_inv_base_matches_plain(flib, field):
+    """1,024 random elements and the edges 0, 1, 2, p - 1 and R mod p (n =
+    1,029: a partial last warp) against the a^(p-2) ladder."""
+    spec = FIELDS[field]
+    rng = np.random.default_rng(91 + FK._field_id(spec))
+    edges = [0, 1, 2, spec.modulus - 1, (1 << 256) % spec.modulus]
+    a = torch.cat([_field_words(rng, spec, 1024),
+                   L.to_tensor(L.to_words(edges), "cpu")], dim=1)
+    got = torch.empty_like(a)
+    assert flib.zt_inv_base(FK._field_id(spec), a.data_ptr(), got.data_ptr(),
+                            a.shape[1], None) == 0
+    assert torch.equal(got, FK.inv_base_plain(a, spec))
+
+
+@pytest.mark.parametrize("field,n", [("Fr", (1 << 18) + 3072),
+                                     ("Fq", 20480), ("Fr", 4096)])
+def test_emulated_inv_bwd_matches_plain(flib, field, n):
+    """2^18 + 3,072: two threads a chain behind the cp.async ring, 16 whole
+    tiles and a partial one of three steps; 20,480 (a whole tile and a
+    partial one of four) and 4,096 (one partial tile, four threads a
+    chain): the suffix scan. Random words stand in for a, the prefixes and
+    the totals' inverses: every output is a product of them."""
+    spec = FIELDS[field]
+    rng = np.random.default_rng(n)
+    a, prefix = (_field_words(rng, spec, n) for _ in range(2))
+    tinv = _field_words(rng, spec, FK.inv_chains(n))
+    got = torch.empty_like(a)
+    fid = FK._field_id(spec)
+    assert flib.zt_inv_bwd(fid, a.data_ptr(), prefix.data_ptr(),
+                           tinv.data_ptr(), got.data_ptr(), n, 0, None) == 0
+    assert torch.equal(got, FK.inv_bwd_plain(a, prefix, tinv, spec))
+    # the 16-byte staging copies refuse a misaligned operand
+    assert flib.zt_inv_bwd(fid, a.data_ptr() + 4, prefix.data_ptr(),
+                           tinv.data_ptr(), got.data_ptr(), n, 0, None) == 716
+
+
+@pytest.mark.parametrize("n", [20480, 4096])
+def test_emulated_inv_bwd_ring_below_threshold(flib, n):
+    """Two threads a chain forced (mapping 1) at the short levels that the
+    scan takes on the path, as chip_smoke.py times it there: a whole tile
+    and a partial one of four steps; one partial tile of four."""
+    spec = L.FR
+    rng = np.random.default_rng(n + 1)
+    a, prefix = (_field_words(rng, spec, n) for _ in range(2))
+    tinv = _field_words(rng, spec, FK.inv_chains(n))
+    got = torch.empty_like(a)
+    assert flib.zt_inv_bwd(FK._field_id(spec), a.data_ptr(),
+                           prefix.data_ptr(), tinv.data_ptr(),
+                           got.data_ptr(), n, 1, None) == 0
+    assert torch.equal(got, FK.inv_bwd_plain(a, prefix, tinv, spec))

@@ -100,7 +100,7 @@ def test_wrappers_raise_off_cpu_without_cuda():
     with pytest.raises(ValueError):
         FK.inv_bwd(meta, meta, meta, TL.FR)
     with pytest.raises(ValueError):
-        FK.fermat(meta, TL.FR)
+        FK.inv_base(meta, TL.FR)
 
 
 def _cuh_arrays(name: str) -> list:
@@ -132,6 +132,22 @@ def test_cuda_constants_match():
     inv = tw.fq2_inv((9, 1))
     b3 = [9 * c % P * (1 << 256) % P for c in inv]
     assert _cuh_arrays("kB3G2") == words(b3[0]) + words(b3[1])
+
+
+@pytest.mark.parametrize("fid", range(3), ids=IDS)
+def test_safegcd_constants_match(fid):
+    """field.cuh's constants of the safegcd inverse: the modulus in 30-bit
+    limbs (limb 8 the bits from 240 up), its inverse mod 2^30, and R^3 mod
+    p, which takes (x R)^-1 back to Montgomery form."""
+    p = sorted(FK._FIELD_ID, key=FK._FIELD_ID.get)[fid]
+    limbs = _cuh_arrays("kP30")[9 * fid:9 * fid + 9]
+    assert limbs == [(p >> (30 * k)) & (2**30 - 1) for k in range(8)] + [
+        p >> 240]
+    assert sum(v << (30 * k) for k, v in enumerate(limbs)) == p
+    assert _cuh_arrays("kPInv30")[fid] * p % 2**30 == 1
+    r3 = pow(1 << 256, 3, p)
+    assert _cuh_arrays("kR3")[8 * fid:8 * fid + 8] == [
+        (r3 >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
 
 
 class _Ptx:

@@ -1,5 +1,5 @@
 """The port's batch inversion (zelana_tpu_torch.ops.limbs.mont_batch_inv_nested
-and the plain inv_fwd / inv_bwd / fermat of ops.field_kernels) against the
+and the plain inv_fwd / inv_bwd / inv_base of ops.field_kernels) against the
 JAX package and against Python integers on the CPU: inputs from a numpy
 seed, tolerance bit-equal (field elements; every word must match)."""
 
@@ -83,7 +83,7 @@ def _chain_model(vals, p):
 
 @pytest.mark.parametrize("n", [3072, 19456])
 def test_chain_pieces_match_int_model(n):
-    """inv_fwd, inv_bwd and fermat, plain, on one tile of three-long chains
+    """inv_fwd, inv_bwd and inv_base, plain, on one tile of three-long chains
     and on a whole tile plus a partial one of three."""
     spec = TL.FR
     vals = _values(n, n, R)
@@ -93,7 +93,7 @@ def test_chain_pieces_match_int_model(n):
     assert TL.decode_mont(TL.to_numpy(prefix), spec) == want_pre
     assert TL.decode_mont(TL.to_numpy(totals), spec) == want_tot
     assert totals.shape[1] == FK.inv_chains(n)
-    tinv = FK.fermat(totals, spec)
+    tinv = FK.inv_base(totals, spec)
     assert TL.decode_mont(TL.to_numpy(tinv), spec) == _inverses(want_tot, R)
     out = FK.inv_bwd(a, prefix, tinv, spec)
     assert TL.decode_mont(TL.to_numpy(out), spec) == _inverses(vals, R)
@@ -110,6 +110,17 @@ def test_mont_inv_and_edges():
         TL.mont_batch_inv_nested(a, TL.FQ)), TL.FQ) == _inverses(vals, P)
     assert TL.decode_mont(TL.FQ.one_mont.reshape(8, 1), TL.FQ) == [1]
     assert TL.is_zero(a).tolist() == [True] + [False] * 4
+
+
+def test_mont_inv_bls12_381_edges():
+    """limbs.mont_inv over BLS12-381 Fr (the privacy SDK's Poseidon field)
+    at 0, 1, 2, p - 1, R mod p and R^2 mod p, against Python integers."""
+    spec = TL.BLS_FR
+    p = spec.modulus
+    vals = [0, 1, 2, p - 1, (1 << 256) % p, (1 << 512) % p]
+    a = TL.to_tensor(TL.encode_mont(vals, spec), "cpu")
+    assert TL.decode_mont(TL.to_numpy(TL.mont_inv(a, spec)), spec) == \
+        _inverses(vals, p)
 
 
 @pytest.mark.skipif(
@@ -131,7 +142,7 @@ def test_chain_pieces_match_jax_kernels():
         assert (TL.to_numpy(t) == want).all()
     call, bits = _fermat_call(R, True)
     jtinv = call(jnp.asarray(bits), jtot)
-    tinv = FK.fermat(totals, TL.FR)
+    tinv = FK.inv_base(totals, TL.FR)
     assert (TL.to_numpy(tinv) == TL.words_from_limbs16(
         np.asarray(jtinv).reshape(JL.NLIMBS, -1))).all()
     jout = _inv_bwd_call(R, n, True)(

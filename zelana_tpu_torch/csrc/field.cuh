@@ -1,6 +1,8 @@
 // Shared device arithmetic of the port's kernels: BN254 Fq and Fr and
 // BLS12-381 Fr in Montgomery form (R = 2^256) as 8 little-endian 32-bit
-// words, the Fq2 tower and the complete projective additions of G1 and G2.
+// words, the fixed-count safegcd inverse, the Fq2 tower and the complete
+// projective additions of G1 and G2, with the PTX carry-chain and cp.async
+// primitives under them.
 //
 // Replaces the TPU kernels' shared helpers: pallas_field._sos_mul_fn (an
 // 8-bit f32 column-SOS, a TPU workaround for the missing widening multiply)
@@ -13,7 +15,8 @@
 // the projective representatives are equal too.
 //
 // The numbers below are checked against the Python constants by
-// tests/test_torch_field.py::test_cuda_constants_match.
+// tests/test_torch_field.py::test_cuda_constants_match and, for the
+// inverse, test_safegcd_constants_match.
 
 #pragma once
 #include <cstdint>
@@ -144,6 +147,23 @@ __device__ __forceinline__ u32 madc_hi(u32 a, u32 b, u32 c) {
     return r;
 }
 
+// asynchronous copy of 16 bytes, global -> shared (both 16-byte aligned),
+// around L1; it lands once a cp_async_wait covers its group
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+// closes the group of this thread's copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
 }  // namespace ptx
 
 // r = a - b over 256 bits; returns 0xffffffff on a borrow out, else 0
@@ -269,6 +289,197 @@ __device__ __forceinline__ Fp<F> mul(const Fp<F>& a, const Fp<F>& b) {
     r.w[7] = ptx::addc(ev[7], 0);
     const u32 bo = sub256(d.w, r.w, kP[F]);
     return bo ? r : d;
+}
+
+// ---------------------------------------------------------------------------
+// Inversion: the Bernstein-Yang "safegcd" algorithm with a fixed count of
+// divsteps, as libsecp256k1's constant-time modinv32 lays it out: signed
+// 30-bit limbs, 20 batches of 30 half-delta divsteps, each batch's 2x2
+// transition matrix applied to (f, g) and (d, e) with 32x32 -> 64-bit
+// products. 590 divsteps reach g = 0 for any modulus and input below 2^256;
+// 600 run for every input, and every select is a mask, so a warp never
+// diverges and the time does not depend on the value. Replaces the a^(p-2)
+// ladder (about 380 dependent Montgomery products); the inverse is unique
+// and mul returns canonical values, so the bits are the same.
+// ---------------------------------------------------------------------------
+
+// the modulus in 30-bit limbs (limb k = bits 30k .. 30k + 29, limb 8 the
+// rest), its inverse mod 2^30, and R^3 mod p for R = 2^256
+__constant__ u32 kP30[3][9] = {
+    {0x187cfd47u, 0x3082305bu, 0x071ca8d3u, 0x205aa45au, 0x01585d97u,
+     0x0116da06u, 0x1a029b85u, 0x139cb84cu, 0x00003064u},
+    {0x30000001u, 0x0f87d64fu, 0x1b970914u, 0x0cfa121eu, 0x01585d28u,
+     0x0116da06u, 0x1a029b85u, 0x139cb84cu, 0x00003064u},
+    {0x00000001u, 0x3ffffffcu, 0x3fe5bfefu, 0x2f6900bfu, 0x21d80553u,
+     0x27602026u, 0x17d48333u, 0x29d4ca67u, 0x000073edu},
+};
+__constant__ u32 kPInv30[3] = {0x1b799c77u, 0x10000001u, 0x00000001u};
+__constant__ u32 kR3[3][8] = {
+    {0xda1530dfu, 0xb1cd6dafu, 0xa7283db6u, 0x62f210e6u,
+     0x0ada0afbu, 0xef7f0b0cu, 0x2d592544u, 0x20fd6e90u},
+    {0xb4bf0040u, 0x5e94d8e1u, 0x1cfbb6b8u, 0x2a489cbeu,
+     0xa19fcfedu, 0x893cc664u, 0x7fcc657cu, 0x0cf8594bu},
+    {0x439b73afu, 0xc62c1807u, 0x8cf06990u, 0x1b3e0d18u,
+     0xc7b5f418u, 0x73d13c71u, 0xc8db33e9u, 0x6e2a5bb9u},
+};
+
+constexpr int32_t kM30 = (int32_t)0x3fffffff;
+
+struct S30 {
+    int32_t v[9];
+};
+
+// the transition matrix of one batch: [u v; q r], entries in [-2^30, 2^30]
+struct Trans {
+    int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low limbs of f and g (f odd); zeta = -(delta + 1/2).
+// The matrix is built in u32 arithmetic mod 2^32 (shifts of negative
+// values are well defined there) and read back as signed.
+__device__ __forceinline__ int32_t divsteps30(int32_t zeta, u32 f, u32 g,
+                                              Trans& t) {
+    u32 u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+    for (int i = 0; i < 30; ++i) {
+        u32 m1 = (u32)(zeta >> 31);  // zeta < 0
+        const u32 m2 = 0u - (g & 1);  // g odd
+        const u32 x = (f ^ m1) - m1, y = (u ^ m1) - m1, z = (v ^ m1) - m1;
+        g += x & m2;
+        q += y & m2;
+        r += z & m2;
+        m1 &= m2;
+        zeta = (zeta ^ (int32_t)m1) - 1;
+        f += g & m1;
+        u += q & m1;
+        v += r & m1;
+        g >>= 1;
+        u <<= 1;
+        v <<= 1;
+    }
+    t = {(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+    return zeta;
+}
+
+// [d, e] <- (t [d, e] + p [md, me]) / 2^30 with md, me chosen so that the
+// division is exact and d, e stay in (-2p, p)
+template <int F>
+__device__ __forceinline__ void update_de(S30& d, S30& e, const Trans& t) {
+    const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+    int32_t md = (t.u & sd) + (t.v & se);
+    int32_t me = (t.q & sd) + (t.r & se);
+    int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+    int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+    md -= (int32_t)((kPInv30[F] * (u32)cd + (u32)md) & (u32)kM30);
+    me -= (int32_t)((kPInv30[F] * (u32)ce + (u32)me) & (u32)kM30);
+    cd += (int64_t)(int32_t)kP30[F][0] * md;
+    ce += (int64_t)(int32_t)kP30[F][0] * me;
+    cd >>= 30;
+    ce >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        const int64_t pi = (int32_t)kP30[F][i];
+        cd += (int64_t)t.u * d.v[i] + (int64_t)t.v * e.v[i] + pi * md;
+        ce += (int64_t)t.q * d.v[i] + (int64_t)t.r * e.v[i] + pi * me;
+        d.v[i - 1] = (int32_t)cd & kM30;
+        e.v[i - 1] = (int32_t)ce & kM30;
+        cd >>= 30;
+        ce >>= 30;
+    }
+    d.v[8] = (int32_t)cd;
+    e.v[8] = (int32_t)ce;
+}
+
+// [f, g] <- t [f, g] / 2^30 (exact by construction of t)
+__device__ __forceinline__ void update_fg(S30& f, S30& g, const Trans& t) {
+    int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+    int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+    cf >>= 30;
+    cg >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        cf += (int64_t)t.u * f.v[i] + (int64_t)t.v * g.v[i];
+        cg += (int64_t)t.q * f.v[i] + (int64_t)t.r * g.v[i];
+        f.v[i - 1] = (int32_t)cf & kM30;
+        g.v[i - 1] = (int32_t)cg & kM30;
+        cf >>= 30;
+        cg >>= 30;
+    }
+    f.v[8] = (int32_t)cf;
+    g.v[8] = (int32_t)cg;
+}
+
+// r += p where mask = -1, then carry each limb's top bits into the next
+template <int F>
+__device__ __forceinline__ void add_p_masked(S30& r, int32_t mask) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) r.v[i] += (int32_t)kP30[F][i] & mask;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        r.v[i + 1] += r.v[i] >> 30;
+        r.v[i] &= kM30;
+    }
+}
+
+// d in (-2p, p) -> sign * d mod p in [0, p), sign = -1 where `neg` < 0
+template <int F>
+__device__ __forceinline__ void normalize(S30& d, int32_t neg) {
+    const int32_t add = d.v[8] >> 31, flip = neg >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        d.v[i] += (int32_t)kP30[F][i] & add;
+        d.v[i] = (d.v[i] ^ flip) - flip;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        d.v[i + 1] += d.v[i] >> 30;
+        d.v[i] &= kM30;
+    }
+    add_p_masked<F>(d, d.v[8] >> 31);
+}
+
+// x^-1 mod p of a canonical x (plain integers, not Montgomery form); 0 -> 0
+template <int F>
+__device__ __forceinline__ Fp<F> safegcd(const Fp<F>& x) {
+    S30 d = {}, e = {}, f, g;
+    e.v[0] = 1;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        f.v[i] = (int32_t)kP30[F][i];
+        const int b = 30 * i, w = b / 32, s = b % 32;
+        const uint64_t pair = ((uint64_t)(w + 1 < 8 ? x.w[w + 1] : 0) << 32)
+                              | x.w[w];
+        g.v[i] = (int32_t)(pair >> s) & (i < 8 ? kM30 : (int32_t)0xffff);
+    }
+    int32_t zeta = -1;
+#pragma unroll 1
+    for (int k = 0; k < 20; ++k) {
+        Trans t;
+        zeta = divsteps30(zeta, (u32)f.v[0], (u32)g.v[0], t);
+        update_de<F>(d, e, t);
+        update_fg(f, g, t);
+    }
+    // g = 0 and f = +-1 (the gcd; f = p when x = 0, and then d = 0)
+    normalize<F>(d, f.v[8]);
+    // word j = bits 32j .. 32j + 31: limb k = 32j / 30 from bit 2j (< 30)
+    // on, then limb k + 1
+    Fp<F> r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int k = 32 * j / 30;
+        const uint64_t pair = ((uint64_t)(u32)d.v[k + 1] << 30) | (u32)d.v[k];
+        r.w[j] = (u32)(pair >> (32 * j % 30));
+    }
+    return r;
+}
+
+// the inverse in Montgomery form: (x R)^-1 R^3 / R = x^-1 R; 0 -> 0
+template <int F>
+__device__ __forceinline__ Fp<F> inv(const Fp<F>& a) {
+    Fp<F> r3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r3.w[j] = kR3[F][j];
+    return mul(safegcd(a), r3);
 }
 
 // G1: 3b = 9, as 8x + x (the JAX kernel's doubling chain)

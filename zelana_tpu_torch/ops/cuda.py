@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "bucket_tail": 0,
             "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
-            "fermat": 0}
+            "inv_base": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -113,8 +113,8 @@ def _declare(cdll) -> None:
         "zt_step": [i, i, p, p, p, l, l, l, l, i, p],
         "zt_mimc_permute": [p, p, p, l, i, p],
         "zt_inv_fwd": [i, p, p, p, l, p],
-        "zt_inv_bwd": [i, p, p, p, p, l, p],
-        "zt_fermat": [i, p, p, l, p],
+        "zt_inv_bwd": [i, p, p, p, p, l, i, p],
+        "zt_inv_base": [i, p, p, l, p],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

@@ -10,11 +10,11 @@
   x <- (x + c_r)^7 for each row c_r of the (R, 8) round constants, BN254 Fr
   only. CUDA kernel ``mimc_permute_kernel``; replaces
   ``pallas_field.mimc_permute_call``.
-- ``inv_fwd``, ``inv_bwd``, ``fermat`` and their recursion ``batch_inv``:
-  Montgomery batch inversion over chains of 16. CUDA kernels
-  ``inv_fwd_kernel``, ``inv_bwd_kernel``, ``fermat_kernel``; replace
-  ``pallas_field._inv_fwd_call``, ``_inv_bwd_call`` and ``_fermat_call``
-  (``batch_inv_pallas``).
+- ``inv_fwd``, ``inv_bwd``, ``inv_base`` and their recursion
+  ``batch_inv``: Montgomery batch inversion over chains of 16. CUDA kernels
+  ``inv_fwd_kernel``, ``inv_bwd_kernel`` / ``inv_bwd_scan_kernel`` and
+  ``inv_base_kernel``; replace ``pallas_field._inv_fwd_call``,
+  ``_inv_bwd_call`` and ``_fermat_call`` (``batch_inv_pallas``).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises: wrong device, type, shape or
@@ -190,7 +190,9 @@ def inv_bwd_plain(a: torch.Tensor, prefix: torch.Tensor, tinv: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def fermat_plain(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
+def inv_base_plain(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
+    """a^(p-2) by left-to-right square-and-multiply: the inverse's plain
+    definition (inv(0) = 0)."""
     x = L.unpack(a)
     acc = x
     for bit in bin(spec.modulus - 2)[3:]:
@@ -220,31 +222,63 @@ def inv_fwd(a: torch.Tensor, spec: L.FieldSpec):
 def inv_bwd(a: torch.Tensor, prefix: torch.Tensor, tinv: torch.Tensor,
             spec: L.FieldSpec) -> torch.Tensor:
     """Inverses of a from its prefixes and the inverses of its chain
-    totals."""
+    totals; replaces pallas_field._inv_bwd_call.
+
+    On the card: levels of 8 tiles or more run inv_bwd_kernel, two
+    threads a chain (the serial suffix chain s <- s * a_i on one, the
+    independent s * prefix_i one step behind on the other) with a ring of
+    four steps staged in shared memory by cp.async; shorter levels, where
+    that leaves most of the card idle, run inv_bwd_scan_kernel, a thread
+    per element and a suffix-product scan in shared memory (depth log2(16)
+    + 1 products). Bound by the integer multiply rate at 2^20 elements
+    (2n Montgomery products), by latency below. a and prefix must be
+    16-byte aligned, as fresh tensors are."""
+    return _inv_bwd(a, prefix, tinv, spec, 0)
+
+
+def inv_bwd_mapped(a: torch.Tensor, prefix: torch.Tensor, tinv: torch.Tensor,
+                   spec: L.FieldSpec, scan: bool) -> torch.Tensor:
+    """inv_bwd with its thread mapping forced on the card (scan=False: two
+    threads a chain, True: the suffix scan), so that a measurement can time
+    both at one n; the inversion calls inv_bwd, which picks by n."""
+    return _inv_bwd(a, prefix, tinv, spec, 2 if scan else 1)
+
+
+def _inv_bwd(a, prefix, tinv, spec, mapping: int) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in (a, prefix, tinv)):
         return inv_bwd_plain(a, prefix, tinv, spec)
     n = a.shape[1]
     chains = inv_chains(n)
     dev = cuda.check([a, prefix, tinv], [(L.NWORDS, n)] * 2
                      + [(L.NWORDS, chains)], "inv_bwd")
+    if (a.data_ptr() | prefix.data_ptr()) % 16:
+        raise ValueError("inv_bwd: a and prefix must be 16-byte aligned")
     out = torch.empty_like(a)
     cuda.launch("field_kernels", "zt_inv_bwd", _field_id(spec), a.data_ptr(),
                 prefix.data_ptr(), tinv.data_ptr(), out.data_ptr(), n,
-                device=dev)
+                mapping, device=dev)
     cuda.LAUNCHES["inv_bwd"] += 1
     return out
 
 
-def fermat(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
-    """a^(p-2) of each element of (8, n) words, any n; inv(0) = 0."""
+def inv_base(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
+    """The inverse of each element of (8, n) Montgomery words, any n;
+    inv(0) = 0. Replaces pallas_field._fermat_call (the recursion's base).
+
+    On the card inv_base_kernel runs the fixed-count safegcd of
+    csrc/field.cuh (600 divsteps on signed 30-bit limbs, then one product
+    by R^3), one thread per element, one warp a block. The recursion's
+    1,024-element base cannot fill the card, so the bound is one thread's
+    dependent chain: ~20 x 30 divsteps and their matrix updates instead of
+    the ~380 dependent Montgomery products of a^(p-2)."""
     if a.device.type == "cpu":
-        return fermat_plain(a, spec)
+        return inv_base_plain(a, spec)
     n = a.shape[1]
-    dev = cuda.check([a], [(L.NWORDS, n)], "fermat")
+    dev = cuda.check([a], [(L.NWORDS, n)], "inv_base")
     out = torch.empty_like(a)
-    cuda.launch("field_kernels", "zt_fermat", _field_id(spec), a.data_ptr(),
-                out.data_ptr(), n, device=dev)
-    cuda.LAUNCHES["fermat"] += 1
+    cuda.launch("field_kernels", "zt_inv_base", _field_id(spec),
+                a.data_ptr(), out.data_ptr(), n, device=dev)
+    cuda.LAUNCHES["inv_base"] += 1
     return out
 
 
@@ -252,10 +286,10 @@ def batch_inv(a: torch.Tensor, spec: L.FieldSpec,
               plain: bool = False) -> torch.Tensor:
     """Inverses of (8, n) nonzero Montgomery words, n a multiple of 1,024:
     inv_fwd, the chain totals inverted recursively down to one block of
-    1,024, which fermat inverts, then inv_bwd. ``plain=True`` runs the plain
-    versions on any device (the reference on the card)."""
-    fwd, bwd, base = ((inv_fwd_plain, inv_bwd_plain, fermat_plain) if plain
-                      else (inv_fwd, inv_bwd, fermat))
+    1,024, which inv_base inverts, then inv_bwd. ``plain=True`` runs the
+    plain versions on any device (the reference on the card)."""
+    fwd, bwd, base = ((inv_fwd_plain, inv_bwd_plain, inv_base_plain) if plain
+                      else (inv_fwd, inv_bwd, inv_base))
     if a.shape[1] == INV_BLOCK:
         return base(a, spec)
     prefix, totals = fwd(a, spec)

@@ -267,11 +267,11 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def mont_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    """a^(p-2) of each element of (8, N) words; inv(0) = 0. On the card this
-    is the fermat kernel."""
+    """The inverse of each element of (8, N) Montgomery words; inv(0) = 0.
+    On the card this is the inv_base kernel (fixed-count safegcd)."""
     from . import field_kernels as FK
 
-    return FK.fermat(a, spec)
+    return FK.inv_base(a, spec)
 
 
 def mont_batch_inv_nested(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
