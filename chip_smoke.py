@@ -10,28 +10,32 @@ Phases (any failure exits non-zero and prints no result):
      source, in parallel), with ptxas register and spill counts;
   2. `kernels`: each kernel against its plain PyTorch version on the card,
      exact equality: mont_mul (2^16 Fr, Fq and BLS12-381 Fr, with 0, 1 and
-     p - 1), one butterfly stage (n = 2^16), runscan in its four variants
-     on a real schedule over a 2^12-point pool and bucket_tail (G1, G2) on
-     that schedule's level-2 emit, step (G1, G2, general and mixed) at
-     S = 2^14 by slot ids and by pairing in one round and in five, and
-     keygen's five step rounds in one launch on a 32,768-scalar chunk
+     p - 1), one butterfly stage (n = 2^16), both also at the L2 prove's
+     shapes (2^13 Fr, 2^12 pairs) and timed there, runscan in its four
+     variants on a real schedule over a 2^12-point pool and bucket_tail
+     (G1, G2) on that schedule's level-2 emit, step (G1, G2, general and
+     mixed) at S = 2^14 by slot ids and by pairing in one round and in
+     five, and keygen's five step rounds in one launch on a 32,768-scalar chunk
      (G1, G2) against five single plain rounds; mimc_permute at 2^14 (91
-     rounds, and 3 rounds of the JAX test's constants); inv_fwd at
-     n = 2^16 and 20,480 (a partial last tile), inv_bwd at the levels of a
-     2^20 inversion (2^20, 2^16, 4,096) and at 20,480 and 19,456, both Fr
-     and Fq, and inv_base over Fr, Fq and BLS12-381 Fr at 1,024 and 2^16
-     elements with 0, 1, 2, p - 1 and R mod p, whole outputs compared;
-     inv_bwd timed per level, inv_base at 1,024 Fr and on one warp;
+     rounds, and 3 rounds of the JAX test's constants); inv_fwd and
+     inv_bwd at the levels of a 2^20 inversion (2^20, 2^16, 4,096) and at
+     20,480 and 19,456 (partial last tiles), both Fr and Fq, and on inputs
+     with zeros at 2^20 and 20,480, inv_base over Fr, Fq and BLS12-381 Fr
+     at 1,024 and 2^16 elements with 0, 1, 2, p - 1 and R mod p, whole
+     outputs compared; inv_fwd and inv_bwd timed per level and in both
+     thread mappings, forced, from 4,096 to 2^20, inv_base at 1,024 Fr and
+     on one warp;
   `hashes`: hash2_batch at 2^20 leaves (one level of a 2^21-leaf account
      tree), hash_n_batch with 3 and 5 columns at 2^16, Poseidon BN254 8/56
      over two columns at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12; 256
      sampled outputs of each equal to the host hashes; launches and times;
   `inversion`: mont_batch_inv_nested over Fr at 2^20 and 20,480 and over
-     Fq at 2^20 with seeded zeros: the whole output equal to the plain
-     version on the card and a * inv == 1 (0 at the zeros) by the mont_mul
+     Fq at 2^20 with seeded zeros, and over Fr on the copy path (a ragged
+     20,403, a column slice and a misaligned contiguous view at 20,480):
+     the whole output equal to the plain version on the card and a * inv == 1 (0 at the zeros) by the mont_mul
      kernel; launches per call (3 inv_fwd, 3 inv_bwd, 1 inv_base at 2^20)
-     and times; one 2^20 Fr inversion under torch.profiler, device time by
-     kernel with the torch ops around the kernels apart;
+     and times; ten 2^20 Fr inversions under torch.profiler, device time
+     by kernel, no device kernel but the port's inversion kernels allowed;
   3. `slice`: prove and prove_many over the L2 block circuit with
      artifacts/l2_dummy_pk.npz, every proof checked by verify, the
      batch_id = 1 proof byte-equal to the vector the JAX package recorded;
@@ -69,6 +73,7 @@ Imports nothing of JAX or of the JAX package.
 
 import argparse
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -225,6 +230,14 @@ def device_ms(torch, fn, reps: int = 20, tries: int = 3) -> float:
                for e in device_events(prof)) / 1e3 / reps
 
 
+def rotating(fn, inputs):
+    """A call of fn on each tuple of `inputs` in turn: copies of the inputs
+    that together exceed the 50 MB L2 make each launch read its own from
+    HBM."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(*next(it))
+
+
 def compare(torch, got, want):
     """(mismatched columns, max |word difference|) of two word tensors."""
     g = got.to(torch.int64) & 0xFFFFFFFF
@@ -352,6 +365,7 @@ def phase_kernels(torch, dev, report) -> list:
                           "zelana_tpu_torch/csrc/field_kernels.cu",
                           "zelana_tpu/ops/pallas_field.py:462", err, ms,
                           plain, bms, by))
+    _l2_shapes(torch, dev, rng, check, kernels[-2:], report)
 
     # runscan, four variants, on a real schedule over a 2^12-point pool;
     # bucket_tail on that schedule's level-2 emit
@@ -461,6 +475,41 @@ def phase_kernels(torch, dev, report) -> list:
                              f"{mismatches}")
     report["kernels_checked"] = [k["name"] for k in kernels]
     return kernels
+
+
+def _l2_shapes(torch, dev, rng, check, entries, report) -> None:
+    """mont_mul and butterfly at the L2 prove's shapes, where their launch
+    counts come from (the witness map at domain 2^13: mont_mul over 2^13
+    Fr, butterfly stages of 2^12 pairs): checked against the plain version
+    and timed by device time beside the bound; added to their entries as
+    l2_ms, l2_bound_ms and l2_bound_by."""
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    n = 1 << 13
+    a, b = (rand_words(torch, rng, FR >> 224, n, dev) for _ in range(2))
+    err = check("mont_mul Fr 2^13", FK.mont_mul(a, b, L.FR),
+                FK.mont_mul_plain(a, b, L.FR))
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
+    m = n // 2
+    x, y, tw = (rand_words(torch, rng, FR >> 224, m, dev) for _ in range(3))
+    for got, want in zip(FK.butterfly(x, y, tw, L.FR),
+                         FK.butterfly_plain(x, y, tw, L.FR)):
+        err = check("butterfly Fr 2^12 pairs", got, want)
+        entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], err)
+    for entry, fn, nbytes, ops in (
+            (entries[0], lambda: FK.mont_mul(a, b, L.FR), n * 96,
+             n * MUL_OPS),
+            (entries[1], lambda: FK.butterfly(x, y, tw, L.FR), m * 160,
+             m * MUL_OPS)):
+        ms = device_ms(torch, fn)
+        bms, by = bound_ms(nbytes, ops)
+        entry.update(l2_ms=ms, l2_bound_ms=bms, l2_bound_by=by)
+        report[f"{entry['name']}_l2_shape"] = {"ms": ms, "bound_ms": bms,
+                                               "bound_by": by}
+        log(f"  {entry['name']} at the L2 prove's shape: {ms:.5f} ms on the "
+            f"device, bound {bms:.5f} ms ({by}), {bms / ms:.1%} of it")
 
 
 def _step_keygen_chunk(torch, dev, rng, check) -> dict:
@@ -587,27 +636,42 @@ def inv_work(name: str, n: int, spec):
 
 
 # the levels of one 2^20 inversion, and the partial last tiles
-INV_BWD_PATH = (1 << 20, 1 << 16, 4096)
-INV_BWD_EDGE = (20480, 19456)
-# inv_bwd's two mappings timed against each other across the launcher's
-# threshold (8 tiles: 2^17 elements)
-INV_BWD_SWEEP = (4096, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+INV_PATH = (1 << 20, 1 << 16, 4096)
+INV_EDGE = (20480, 19456)
+INV_ZEROS = (1 << 20, 20480)  # inputs with zeros
+# inv_fwd's and inv_bwd's two thread mappings timed against each other
+# across the launchers' thresholds (zt_inv_scan_below)
+INV_SWEEP = (4096, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+
+
+def _with_zeros(rng, a):
+    """a with zeros at its first and last element and at 64 random
+    places."""
+    import numpy as np
+
+    n = a.shape[1]
+    a[:, [0, n - 1, *rng.choice(np.arange(1, n - 1), 64,
+                                replace=False).tolist()]] = 0
+    return a
 
 
 def _inversion_kernels(torch, dev, rng, check, report) -> list:
     """The three inversion kernels against their plain versions on the
-    same inputs, whole outputs compared: inv_fwd at n = 2^16 and 20,480
-    (Fr and Fq); inv_bwd over Fr and Fq at the levels of a 2^20 inversion
-    (2^20 elements: two threads a chain; 2^16 and 4,096: the scan) and at
-    20,480 and 19,456 (partial last tiles of four and three steps); inv_base
-    over Fr, Fq and BLS12-381 Fr at 1,024 and 2^16 random elements and the
-    edges 0, 1, 2, p - 1 and R mod p. Times: inv_fwd at 2^16 (Fr + Fq, as in
-    earlier runs), inv_bwd per level of a 2^20 Fr inversion (their sum is
-    its entry), inv_base at its recursion-base shape, 1,024 Fr, and on one
-    warp (32 elements: the one-thread latency floor); the kernels' device
-    time from the profiler, CUDA events beside it (`events_ms`). Both of
-    inv_bwd's thread mappings, forced, checked and timed over Fr at
-    INV_BWD_SWEEP: the evidence for the launcher's threshold."""
+    same inputs, whole outputs compared: inv_fwd (prefixes and totals) and
+    inv_bwd over Fr and Fq at the levels of a 2^20 inversion (2^20: the
+    long mappings; 2^16 and 4,096: the scans) and at 20,480 and 19,456
+    (partial last tiles of four and three steps); both on inputs with
+    zeros at 2^20 and 20,480 over Fr (the long mappings and the scans),
+    zeros at the first and last element and at random places; inv_base over Fr, Fq and BLS12-381 Fr at
+    1,024 and 2^16 random elements and the edges 0, 1, 2, p - 1 and R mod
+    p. Times: inv_fwd and inv_bwd per level of a 2^20 Fr inversion (their
+    sums are their entries; PERF.md says what inv_fwd's entry summed
+    before), inv_base at its recursion-base shape, 1,024 Fr, and on one
+    warp (32 elements: the one-thread latency floor); the kernels'
+    device time from the profiler, CUDA events beside it (`events_ms`).
+    Both thread mappings of inv_fwd and of inv_bwd, forced, checked and
+    timed over Fr at INV_SWEEP: the evidence for the launchers'
+    thresholds."""
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
 
@@ -616,18 +680,25 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
     t = {k: {"ms": 0.0, "events": 0.0, "plain": 0.0, "bytes": 0.0,
              "ops": 0.0} for k in err}
 
-    def timed(name, key, fn, pfn, width, spec):
-        """ms: the kernel's device time (profiler); events_ms: CUDA events
-        around back-to-back calls, the host's launches included."""
-        ms = device_ms(torch, fn)
+    def timed(name, key, fn, pfn, width, spec, cold=None):
+        """ms: the kernel's device time (profiler), over `cold` where given
+        (fn over copies of its inputs in turn, so that each launch reads
+        them from HBM, as the bound assumes; warm_ms: fn on one input, part
+        of it left in the 50 MB L2 by the launch before); events_ms: CUDA
+        events around back-to-back calls, the host's launches included."""
+        ms = device_ms(torch, cold or fn)
         events = cuda_ms(torch, fn, 20)
         plain = cuda_ms(torch, pfn, 1, False)
         nbytes, ops = inv_work(name, width, spec)
         bms, by = bound_ms(nbytes, ops)
         rep[key] = {"ms": ms, "events_ms": events, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by}
-        log(f"  {key}: {ms:.4f} ms on the device ({events:.4f} ms by CUDA "
-            f"events around back-to-back calls), plain {plain:.2f} ms, "
+        warm = ""
+        if cold:
+            rep[key]["warm_ms"] = device_ms(torch, fn)
+            warm = f", {rep[key]['warm_ms']:.4f} on one input (warm L2)"
+        log(f"  {key}: {ms:.4f} ms on the device{warm} ({events:.4f} ms by "
+            f"CUDA events around back-to-back calls), plain {plain:.2f} ms, "
             f"bound {bms:.4f} ms ({by})")
         t[name]["ms"] += ms
         t[name]["events"] += events
@@ -635,31 +706,46 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
         t[name]["bytes"] += nbytes
         t[name]["ops"] += ops
 
+    def fwd_check(what, got, want):
+        return max(check(f"inv_fwd {what} prefix", got[0], want[0]),
+                   check(f"inv_fwd {what} totals", got[1], want[1]))
+
     for spec, fname in ((L.FR, "Fr"), (L.FQ, "Fq")):
         top = spec.modulus >> 224
-        for n in (1 << 16, 20480):
+        for n in INV_PATH + INV_EDGE:
             a = rand_words(torch, rng, top, n, dev)
-            pre, tot = FK.inv_fwd(a, spec)
-            ppre, ptot = FK.inv_fwd_plain(a, spec)
-            err["inv_fwd"] = max(err["inv_fwd"],
-                                 check(f"inv_fwd {fname} {n} prefix", pre,
-                                       ppre),
-                                 check(f"inv_fwd {fname} {n} totals", tot,
-                                       ptot))
-            if n == 1 << 16:
-                timed("inv_fwd", f"inv_fwd {fname} {n}",
+            err["inv_fwd"] = max(err["inv_fwd"], fwd_check(
+                f"{fname} {n}", FK.inv_fwd(a, spec),
+                FK.inv_fwd_plain(a, spec)))
+            if spec is L.FR and n in INV_PATH:
+                timed("inv_fwd", f"inv_fwd Fr {n}",
                       lambda: FK.inv_fwd(a, spec),
-                      lambda: FK.inv_fwd_plain(a, spec), n, spec)
-        for n in INV_BWD_PATH + INV_BWD_EDGE:
-            a, pre = (rand_words(torch, rng, top, n, dev) for _ in range(2))
+                      lambda: FK.inv_fwd_plain(a, spec), n, spec,
+                      rotating(lambda x: FK.inv_fwd(x, spec),
+                               [(a,), *((a.clone(),) for _ in range(3))])
+                      if n == 1 << 20 else None)
+            pre = rand_words(torch, rng, top, n, dev)
             tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
             err["inv_bwd"] = max(err["inv_bwd"], check(
                 f"inv_bwd {fname} {n}", FK.inv_bwd(a, pre, tinv, spec),
                 FK.inv_bwd_plain(a, pre, tinv, spec)))
-            if spec is L.FR and n in INV_BWD_PATH:
+            if spec is L.FR and n in INV_PATH:
                 timed("inv_bwd", f"inv_bwd Fr {n}",
                       lambda: FK.inv_bwd(a, pre, tinv, spec),
-                      lambda: FK.inv_bwd_plain(a, pre, tinv, spec), n, spec)
+                      lambda: FK.inv_bwd_plain(a, pre, tinv, spec), n, spec,
+                      rotating(lambda x, y: FK.inv_bwd(x, y, tinv, spec),
+                               [(a, pre), (a.clone(), pre.clone())])
+                      if n == 1 << 20 else None)
+    spec, top = L.FR, L.FR.modulus >> 224
+    for n in INV_ZEROS:
+        a = _with_zeros(rng, rand_words(torch, rng, top, n, dev))
+        err["inv_fwd"] = max(err["inv_fwd"], fwd_check(
+            f"Fr {n} zeros", FK.inv_fwd(a, spec), FK.inv_fwd_plain(a, spec)))
+        pre = rand_words(torch, rng, top, n, dev)
+        tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
+        err["inv_bwd"] = max(err["inv_bwd"], check(
+            f"inv_bwd Fr {n} zeros", FK.inv_bwd(a, pre, tinv, spec),
+            FK.inv_bwd_plain(a, pre, tinv, spec)))
     for spec, fname in ((L.FR, "Fr"), (L.FQ, "Fq"),
                         (L.BLS_FR, "BLS12-381 Fr")):
         p = spec.modulus
@@ -688,7 +774,8 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
                 f"(the ladder: {fermat_muls(p) * MUL_OPS} multiplies, bound "
                 f"at 1,024 {ladder[0]:.5f} ms ({ladder[1]})); one warp (32 "
                 f"elements): {floor:.4f} ms")
-    _inv_bwd_mappings(torch, dev, rng, check, rep, err)
+    _inv_mappings(torch, dev, rng, check, rep, err, "inv_fwd")
+    _inv_mappings(torch, dev, rng, check, rep, err, "inv_bwd")
     out = []
     for name, line in (("inv_fwd", 247), ("inv_bwd", 274), ("inv_base", 228)):
         bms, by = bound_ms(t[name]["bytes"], t[name]["ops"])
@@ -702,32 +789,44 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
     return out
 
 
-def _inv_bwd_mappings(torch, dev, rng, check, rep, err) -> None:
-    """inv_bwd's two thread mappings forced at each n of INV_BWD_SWEEP over
-    Fr: each whole output against the plain version, and each mapping's
-    device time beside the one the launcher picks."""
+def _inv_mappings(torch, dev, rng, check, rep, err, name) -> None:
+    """The two thread mappings of `name` (inv_fwd or inv_bwd) forced at
+    each n of INV_SWEEP over Fr: each whole output against the plain
+    version, and each mapping's device time beside the one the launcher
+    picks."""
+    from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
 
     spec, top = L.FR, L.FR.modulus >> 224
-    res = rep["inv_bwd mappings"] = {}
-    for n in INV_BWD_SWEEP:
-        a, pre = (rand_words(torch, rng, top, n, dev) for _ in range(2))
-        tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
-        want = FK.inv_bwd_plain(a, pre, tinv, spec)
+    long = "a thread a chain" if name == "inv_fwd" else "two threads a chain"
+    res = rep[f"{name} mappings"] = {}
+    for n in INV_SWEEP:
+        a = rand_words(torch, rng, top, n, dev)
+        if name == "inv_fwd":  # (prefixes, totals)
+            want = FK.inv_fwd_plain(a, spec)
+            mapped = functools.partial(FK.inv_fwd_mapped, a, spec)
+        else:  # (out,)
+            pre = rand_words(torch, rng, top, n, dev)
+            tinv = rand_words(torch, rng, top, FK.inv_chains(n), dev)
+            want = (FK.inv_bwd_plain(a, pre, tinv, spec),)
+
+            def mapped(scan, a=a, pre=pre, tinv=tinv):
+                return (FK.inv_bwd_mapped(a, pre, tinv, spec, scan),)
         ms = {}
-        for scan, what in ((False, "two threads a chain"), (True, "scan")):
-            fn = functools.partial(FK.inv_bwd_mapped, a, pre, tinv, spec, scan)
-            err["inv_bwd"] = max(err["inv_bwd"], check(
-                f"inv_bwd Fr {n}, {what} forced", fn(), want))
+        for scan, what in ((False, long), (True, "scan")):
+            fn = functools.partial(mapped, scan)
+            err[name] = max(err[name], *(
+                check(f"{name} Fr {n}, {what} forced, output {k}", g, w)
+                for k, (g, w) in enumerate(zip(fn(), want))))
             ms[what] = device_ms(torch, fn)
-        # the launcher's threshold: kBwdScanBelow chains (8 tiles)
-        picked = "scan" if FK.inv_chains(n) < 8 * FK.INV_BLOCK else \
-            "two threads a chain"
+        below = cuda.lib("field_kernels").zt_inv_scan_below(
+            int(name == "inv_bwd"))
+        picked = "scan" if FK.inv_chains(n) < below else long
         res[str(n)] = {**ms, "picked": picked}
-        log(f"  inv_bwd Fr {n}: two threads a chain "
-            f"{ms['two threads a chain']:.4f} ms, scan {ms['scan']:.4f} ms "
-            f"(device time); the launcher picks the {picked}")
+        log(f"  {name} Fr {n}: {long} {ms[long]:.4f} ms, scan "
+            f"{ms['scan']:.4f} ms (device time); the launcher picks the "
+            f"{picked}")
 
 
 def _entry(name, source, replaces, err, ms, plain, bms, by) -> dict:
@@ -850,10 +949,28 @@ def phase_inversion(torch, dev, report) -> dict:
     rng = np.random.default_rng(11)
     rep = report["inversion"] = {}
     path = None
-    for spec, fname, n in ((L.FR, "Fr", 1 << 20), (L.FR, "Fr", 20480),
-                           (L.FQ, "Fq", 1 << 20)):
-        name = f"mont_batch_inv_nested {fname} {n}"
-        a = rand_words(torch, rng, spec.modulus >> 224, n, dev)
+    # (field, n, layout): "" a fresh tensor; the rest take the function's
+    # copy path: a ragged n, a column slice of an (8, n + 1) tensor (not
+    # contiguous, 4 bytes off), and a contiguous view 4 bytes off
+    for spec, fname, n, layout in (
+            (L.FR, "Fr", 1 << 20, ""), (L.FR, "Fr", 20480, ""),
+            (L.FR, "Fr", 20480 - 77, " (ragged)"),
+            (L.FR, "Fr", 20480, " (column slice)"),
+            (L.FR, "Fr", 20480, " (misaligned view)"),
+            (L.FQ, "Fq", 1 << 20, "")):
+        name = f"mont_batch_inv_nested {fname} {n}{layout}"
+        top = spec.modulus >> 224
+        if layout == " (column slice)":
+            a = rand_words(torch, rng, top, n + 1, dev)[:, 1:]
+        elif layout == " (misaligned view)":
+            flat = rand_words(torch, rng, top, n + 1, dev).reshape(-1)
+            a = flat[1:1 + L.NWORDS * n].view(L.NWORDS, n)
+        else:
+            a = rand_words(torch, rng, top, n, dev)
+        if layout in (" (column slice)", " (misaligned view)") and (
+                a.data_ptr() % 16 == 0 or (
+                    layout == " (column slice)") == a.is_contiguous()):
+            raise AssertionError(f"{name}: the view is not the layout named")
         zeros = [0, n - 1, *rng.choice(np.arange(1, n - 1), 6,
                                        replace=False).tolist()]
         a[:, zeros] = 0
@@ -870,20 +987,24 @@ def phase_inversion(torch, dev, report) -> dict:
             if path != {"inv_fwd": 3, "inv_bwd": 3, "inv_base": 1}:
                 raise AssertionError(f"{name}: launches {path}, expected 3 "
                                      f"inv_fwd, 3 inv_bwd, 1 inv_base")
-        # the plain recursion on the same zero-swapped input (every n here
-        # is a multiple of 1,024: no padding)
+        # the plain recursion on the zero-swapped input, padded with ones
+        # (the function pads with zeros and counts them as ones inside
+        # the kernels)
         one = L.broadcast(spec.one_mont, n, dev)
         zero = L.is_zero(a)
-        plain = FK.batch_inv(L.select(zero, one, a), spec, plain=True)
+        pad = L.broadcast(spec.one_mont, -n % FK.INV_BLOCK, dev)
+        plain = FK.batch_inv(torch.cat([L.select(zero, one, a), pad], dim=1),
+                             spec, plain=True)[:, :n]
         mism, _ = compare(torch, inv,
                           L.select(zero, torch.zeros_like(plain), plain))
-        prod = FK.mont_mul(a, inv, spec)
+        prod = FK.mont_mul(a.contiguous(), inv, spec)
         want = L.select(zero, torch.zeros_like(one), one)
         bad = int((prod != want).any(dim=0).sum())
-        if mism or bad or int(zero.sum()) != len(zeros):
+        if mism or bad or int(zero.sum()) != len(zeros) or \
+                inv[:, zero].any():
             raise AssertionError(f"{name}: {mism} columns differ from the "
                                  f"plain version, {bad} products a * inv "
-                                 f"wrong")
+                                 f"wrong, or a zero not kept")
         ms = cuda_ms(torch, lambda: L.mont_batch_inv_nested(a, spec), 5)
         rep[name] = {"ms": ms, "first_call_s": first, "launches": launches}
         log(f"  {name}: {ms:.3f} ms on the card (first call {first:.3f} s), "
@@ -894,43 +1015,59 @@ def phase_inversion(torch, dev, report) -> dict:
     return path
 
 
-def _inversion_profile(torch, a, spec, rep) -> None:
-    """One 2^20 inversion under torch.profiler: device time by kernel, the
-    port's kernels apart from the torch elementwise ops around them (the
-    zero mask, the selects); and the first level's inv_fwd by CUDA events
-    beside its bound (inv_bwd's levels are timed in `kernels`)."""
+# device kernels of one 2^20 inversion, by name
+INV_PROFILE = {"inv_fwd_kernel": 1, "inv_fwd_scan_kernel": 2,
+               "inv_bwd_kernel": 1, "inv_bwd_scan_kernel": 2,
+               "inv_base_kernel": 1}
+
+
+def _inversion_profile(torch, a, spec, rep, reps: int = 10) -> None:
+    """`reps` 2^20 inversions back to back under torch.profiler: device
+    time by kernel and per inversion; the run fails if any device kernel
+    but the port's inversion kernels ran (the zero handling is inside
+    them). The profiler can drop the first kernels of a window, so the
+    window holds several inversions and the counts are logged against
+    INV_PROFILE. Each level's kernels are timed in `kernels`."""
     from torch.profiler import ProfilerActivity, profile
 
-    from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
 
     n = a.shape[1]
-    safe = L.select(L.is_zero(a), L.broadcast(spec.one_mont, n, a.device), a)
-    ms = cuda_ms(torch, lambda: FK.inv_fwd(safe, spec), 20)
-    bms, by = bound_ms(*inv_work("inv_fwd", n, spec))
-    rep[f"inv_fwd {n}"] = {"ms": ms, "bound_ms": bms, "bound_by": by}
-    log(f"    inv_fwd {n}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
     L.mont_batch_inv_nested(a, spec)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        L.mont_batch_inv_nested(a, spec)
+        for _ in range(reps):
+            L.mont_batch_inv_nested(a, spec)
         torch.cuda.synchronize()
-    ours = ("inv_fwd_kernel", "inv_bwd_kernel", "inv_bwd_scan_kernel",
-            "inv_base_kernel")
-    by_kernel = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                        for e in device_events(prof)
-                        if e.self_device_time_total > 0),
-                       key=lambda k: -k[2])
-    kern = sum(t for k, _, t in by_kernel if any(o in k for o in ours))
-    other = sum(t for k, _, t in by_kernel if not any(o in k for o in ours))
-    rep[f"profile {n}"] = {"kernels_ms": kern, "torch_ops_ms": other,
-                           "by_kernel": [(k[:90], c, t)
-                                         for k, c, t in by_kernel]}
-    log(f"    one {n} inversion under the profiler: the port's kernels "
-        f"{kern:.4f} ms, torch ops around them {other:.4f} ms")
-    for k, c, t in by_kernel:
-        log(f"      {t:8.4f} ms  x{c:<3d} {k[:80]}")
+    events = device_events(prof)
+
+    def ours(key):  # "void inv_fwd_kernel<1>(...)" -> "inv_fwd_kernel"
+        name = key.split("<")[0].split()[-1] if key.strip() else ""
+        return name if name in INV_PROFILE else None
+
+    others = [e.key for e in events if ours(e.key) is None]
+    counts = {k: sum(e.count for e in events if ours(e.key) == k)
+              for k in INV_PROFILE}
+    kern = sum(e.self_device_time_total for e in events) / 1e3
+    per = kern / max(counts["inv_base_kernel"], 1)
+    rep[f"profile {n}"] = {
+        "inversions": reps, "kernels_ms": kern, "per_inversion_ms": per,
+        "counts": counts, "others": others,
+        "by_kernel": [(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                      for e in events]}
+    log(f"    {reps} {n} inversions under the profiler: the port's kernels "
+        f"{kern:.4f} ms of device time, {per:.4f} ms an inversion (over "
+        f"{counts['inv_base_kernel']} base launches); kernels seen {counts} "
+        f"(expected {reps} x {INV_PROFILE}); other device kernels: "
+        f"{others or 'none'}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total):
+        log(f"      {e.self_device_time_total / 1e3:8.4f} ms  "
+            f"x{e.count:<3d} {e.key[:80]}")
+    if others or not all(counts.values()):
+        raise AssertionError(f"{reps} {n} inversions: device kernels other "
+                             f"than the port's {others}, or one of the "
+                             f"port's missing: {counts}")
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,12 @@ carry flag, asynchronous copies that land only at their wait) and run on
 host memory, against their plain PyTorch versions: `step` in one round and
 in several (one thread per subtree), general and mixed, the bucket tail's
 two kernels (six threads per complete add, four barriers an add), the
-safegcd base inverse over the three fields, and inv_bwd in both of its
-thread mappings (two threads a chain behind a cp.async ring; a suffix scan
-over a thread per element). This holds the kernels' indexing, their
-barriers and their shared memory before a card sees them; the card runs
-the same comparison in chip_smoke.py. Equality is exact."""
+safegcd base inverse over the three fields, inv_fwd in both of its thread
+mappings (a thread a chain behind a cp.async ring; a prefix scan over a
+thread per element), inv_bwd in both of its (two threads a chain behind a
+cp.async ring; a suffix scan), and both on inputs with zeros. This holds
+the kernels' indexing, their barriers and their shared memory before a
+card sees them; the card runs the same comparison in chip_smoke.py. Equality is exact."""
 
 import ctypes
 import os
@@ -85,7 +86,7 @@ def lib():
 
 @pytest.fixture(scope="module")
 def flib():
-    return _build("field_kernels", 7)
+    return _build("field_kernels", 8)
 
 
 def _rand_words(rng, C: int, n: int) -> torch.Tensor:
@@ -182,11 +183,13 @@ def test_emulated_inv_bwd_matches_plain(flib, field, n):
     got = torch.empty_like(a)
     fid = FK._field_id(spec)
     assert flib.zt_inv_bwd(fid, a.data_ptr(), prefix.data_ptr(),
-                           tinv.data_ptr(), got.data_ptr(), n, 0, None) == 0
+                           tinv.data_ptr(), got.data_ptr(), n, 0,
+                           None) == 0
     assert torch.equal(got, FK.inv_bwd_plain(a, prefix, tinv, spec))
     # the 16-byte staging copies refuse a misaligned operand
     assert flib.zt_inv_bwd(fid, a.data_ptr() + 4, prefix.data_ptr(),
-                           tinv.data_ptr(), got.data_ptr(), n, 0, None) == 716
+                           tinv.data_ptr(), got.data_ptr(), n, 0,
+                           None) == 716
 
 
 @pytest.mark.parametrize("n", [20480, 4096])
@@ -203,3 +206,74 @@ def test_emulated_inv_bwd_ring_below_threshold(flib, n):
                            prefix.data_ptr(), tinv.data_ptr(),
                            got.data_ptr(), n, 1, None) == 0
     assert torch.equal(got, FK.inv_bwd_plain(a, prefix, tinv, spec))
+
+
+def _fwd(flib, spec, a, mapping: int):
+    """zt_inv_fwd on host memory -> (return code, prefix, totals)."""
+    n = a.shape[1]
+    prefix = torch.empty_like(a)
+    totals = torch.empty((8, FK.inv_chains(n)), dtype=torch.int32)
+    rc = flib.zt_inv_fwd(FK._field_id(spec), a.data_ptr(), prefix.data_ptr(),
+                         totals.data_ptr(), n, mapping, None)
+    return rc, prefix, totals
+
+
+@pytest.mark.parametrize("mapping", [0, 1, 2])
+@pytest.mark.parametrize("field,n", [("Fr", (1 << 18) + 3072),
+                                     ("Fq", 20480), ("Fr", 4096)])
+def test_emulated_inv_fwd_matches_plain(flib, field, n, mapping):
+    """Mapping 0 (the launcher's pick: a thread a chain behind the cp.async
+    ring at 2^18 + 3,072, 16 whole tiles and a partial one of three steps;
+    the prefix scan at 20,480, a whole tile and a partial one of four, and
+    at 4,096, one partial tile, four threads a chain), then each mapping
+    forced at the same n. Prefixes and totals whole against the plain
+    version."""
+    spec = FIELDS[field]
+    a = _field_words(np.random.default_rng(n + 2), spec, n)
+    rc, prefix, totals = _fwd(flib, spec, a, mapping)
+    assert rc == 0
+    want = FK.inv_fwd_plain(a, spec)
+    assert torch.equal(prefix, want[0]) and torch.equal(totals, want[1])
+    # the 16-byte staging copies refuse a misaligned operand
+    assert flib.zt_inv_fwd(FK._field_id(spec), a.data_ptr() + 4,
+                           prefix.data_ptr(), totals.data_ptr(), n, mapping,
+                           None) == 716
+
+
+def _with_zeros(rng, spec, n: int) -> torch.Tensor:
+    """Random words with zeros at the first and the last element, at 40
+    random places and along the whole of chain 5 of tile 0."""
+    a = _field_words(rng, spec, n)
+    cols = [0, n - 1, *rng.choice(np.arange(1, n - 1), 40, replace=False)]
+    a[:, cols] = 0
+    a[:, 5:FK.INV_TILE:FK.INV_BLOCK] = 0
+    return a
+
+
+@pytest.mark.parametrize("kernel,mapping", [
+    ("inv_fwd", 1), ("inv_fwd", 2), ("inv_bwd", 1), ("inv_bwd", 2)])
+def test_emulated_zeros_match_plain(flib, kernel, mapping):
+    """Inputs with zeros at 20,480 Fr elements (a whole tile and a partial
+    one of four) in each thread mapping: a zero counts as one in the
+    products, and inv_bwd writes zero in its place; bit-equal to the plain
+    versions."""
+    spec = L.FR
+    n = 20480
+    rng = np.random.default_rng(97 + mapping)
+    a = _with_zeros(rng, spec, n)
+    fid = FK._field_id(spec)
+    if kernel == "inv_fwd":
+        rc, prefix, totals = _fwd(flib, spec, a, mapping)
+        assert rc == 0
+        want = FK.inv_fwd_plain(a, spec)
+        assert torch.equal(prefix, want[0]) and torch.equal(totals, want[1])
+        return
+    prefix = _field_words(rng, spec, n)
+    tinv = _field_words(rng, spec, FK.inv_chains(n))
+    got = torch.empty_like(a)
+    assert flib.zt_inv_bwd(fid, a.data_ptr(), prefix.data_ptr(),
+                           tinv.data_ptr(), got.data_ptr(), n, mapping,
+                           None) == 0
+    want = FK.inv_bwd_plain(a, prefix, tinv, spec)
+    assert torch.equal(got, want)
+    assert not want[:, (a == 0).all(dim=0)].any()

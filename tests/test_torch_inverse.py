@@ -48,6 +48,34 @@ def test_batch_inv_matches_jax(n):
     assert (TL.to_numpy(got) == TL.words_from_limbs16(want)).all()
 
 
+def test_zeros_match_jax():
+    """The plain recursion (field_kernels.batch_inv, plain inv_fwd /
+    inv_bwd counting a zero as one) at 20,480 (a whole tile and a partial
+    one of four) on inputs with zeros, the first and the last element and
+    a whole chain among them, against the JAX mont_batch_inv_nested; and
+    each piece against the same piece on the input with its zeros swapped
+    for one, zero where a is zero."""
+    n = 20480
+    zeros = _zeros(n + 3, n) + list(range(5, FK.INV_TILE, FK.INV_BLOCK))
+    vals = _values(n + 5, n, R, zeros)
+    j16 = JL.encode_mont(vals, JL.FR)
+    want = np.asarray(JL.mont_batch_inv_nested(jnp.asarray(j16), JL.FR))
+    a = TL.to_tensor(TL.words_from_limbs16(j16), "cpu")
+    got = FK.batch_inv(a, TL.FR, plain=True)
+    assert (TL.to_numpy(got) == TL.words_from_limbs16(want)).all()
+
+    zero = TL.is_zero(a)
+    safe = TL.select(zero, TL.broadcast(TL.FR.one_mont, n, "cpu"), a)
+    prefix, totals = FK.inv_fwd_plain(a, TL.FR)
+    want_pre, want_tot = FK.inv_fwd_plain(safe, TL.FR)
+    assert torch.equal(prefix, want_pre) and torch.equal(totals, want_tot)
+    tinv = FK.inv_base_plain(totals, TL.FR)
+    out = FK.inv_bwd_plain(a, prefix, tinv, TL.FR)
+    want_out = FK.inv_bwd_plain(safe, prefix, tinv, TL.FR)
+    assert torch.equal(out, TL.select(zero, torch.zeros_like(out),
+                                      want_out))
+
+
 @pytest.mark.parametrize("n,field", [(20480, "Fr"), (1000, "Fq"),
                                      (1000, "BLS12-381 Fr")])
 def test_batch_inv_matches_pow(n, field):

@@ -16,8 +16,8 @@ from a fixed seed (`--parts`, default all):
     over a pool that tiles 4,096 multiples of the generator), and its two
     run-scan passes alone; the segment less its scans is its tail;
   - inversion: limbs.mont_inv on 1,024 Fr elements (the recursion's base
-    kernel), field_kernels.inv_bwd at the three levels of a 2^20
-    inversion (2^20, 2^16 and 4,096 elements, Fr), by device time
+    kernel), field_kernels.inv_fwd and inv_bwd at the three levels of a
+    2^20 inversion (2^20, 2^16 and 4,096 elements, Fr), by device time
     (torch.profiler), and limbs.mont_batch_inv_nested at 2^20, Fr and Fq,
     by CUDA events (the launches' gaps included) and by device time.
 
@@ -145,6 +145,8 @@ def measure_inversion(torch, np, dev) -> dict:
         torch, lambda: L.mont_inv(base, L.FR), 20)
     for n in (1 << 20, 1 << 16, 4096):
         a = words(L.FR, n)
+        out[f"inv_fwd_{n}_device_ms"] = device_ms(
+            torch, lambda: FK.inv_fwd(a, L.FR), 20)
         pre, tot = FK.inv_fwd(a, L.FR)
         tinv = words(L.FR, tot.shape[1])
         out[f"inv_bwd_{n}_device_ms"] = device_ms(

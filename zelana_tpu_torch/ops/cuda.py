@@ -112,9 +112,10 @@ def _declare(cdll) -> None:
         "zt_bucket_tree": [i, p, i, p, p],
         "zt_step": [i, i, p, p, p, l, l, l, l, i, p],
         "zt_mimc_permute": [p, p, p, l, i, p],
-        "zt_inv_fwd": [i, p, p, p, l, p],
+        "zt_inv_fwd": [i, p, p, p, l, i, p],
         "zt_inv_bwd": [i, p, p, p, p, l, i, p],
         "zt_inv_base": [i, p, p, l, p],
+        "zt_inv_scan_below": [i],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

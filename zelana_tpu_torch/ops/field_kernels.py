@@ -12,9 +12,10 @@
   ``pallas_field.mimc_permute_call``.
 - ``inv_fwd``, ``inv_bwd``, ``inv_base`` and their recursion
   ``batch_inv``: Montgomery batch inversion over chains of 16. CUDA kernels
-  ``inv_fwd_kernel``, ``inv_bwd_kernel`` / ``inv_bwd_scan_kernel`` and
-  ``inv_base_kernel``; replace ``pallas_field._inv_fwd_call``,
-  ``_inv_bwd_call`` and ``_fermat_call`` (``batch_inv_pallas``).
+  ``inv_fwd_kernel`` / ``inv_fwd_scan_kernel``, ``inv_bwd_kernel`` /
+  ``inv_bwd_scan_kernel`` and ``inv_base_kernel``; replace
+  ``pallas_field._inv_fwd_call``, ``_inv_bwd_call`` and ``_fermat_call``
+  (``batch_inv_pallas``).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises: wrong device, type, shape or
@@ -156,17 +157,28 @@ def _chain_view(words: torch.Tensor, start: int, tiles: int, length: int):
     return L.unpack(seg).reshape(L.NLIMBS, tiles, length, INV_BLOCK)
 
 
+def _one_limbs(spec: L.FieldSpec, device) -> torch.Tensor:
+    """(16, 1, 1) limbs of one in Montgomery form."""
+    return L.unpack(L.to_tensor(spec.one_mont, device)).reshape(L.NLIMBS, 1, 1)
+
+
+def _zero_as_one(x: torch.Tensor, spec: L.FieldSpec):
+    """(x with its zero elements replaced by one, the zero mask) of
+    (16, tiles, INV_BLOCK) limbs."""
+    zero = (x == 0).all(dim=0)
+    return torch.where(zero[None], _one_limbs(spec, x.device), x), zero
+
+
 def inv_fwd_plain(a: torch.Tensor, spec: L.FieldSpec):
     inv_chains(a.shape[1])
     prefix, totals = [], []
     for start, tiles, length in _segments(a.shape[1]):
         x = _chain_view(a, start, tiles, length)
-        acc = L.unpack(L.to_tensor(spec.one_mont, a.device)).reshape(
-            L.NLIMBS, 1, 1).expand(L.NLIMBS, tiles, INV_BLOCK)
+        acc = _one_limbs(spec, a.device).expand(L.NLIMBS, tiles, INV_BLOCK)
         pre = torch.empty_like(x)
         for i in range(length):
             pre[:, :, i] = acc
-            acc = L.mul_l(acc, x[:, :, i], spec)
+            acc = L.mul_l(acc, _zero_as_one(x[:, :, i], spec)[0], spec)
         prefix.append(L.pack(pre).reshape(L.NWORDS, -1))
         totals.append(L.pack(acc).reshape(L.NWORDS, -1))
     return torch.cat(prefix, dim=1), torch.cat(totals, dim=1)
@@ -184,8 +196,10 @@ def inv_bwd_plain(a: torch.Tensor, prefix: torch.Tensor, tinv: torch.Tensor,
             L.NLIMBS, tiles, INV_BLOCK)
         res = torch.empty_like(x)
         for i in reversed(range(length)):
-            res[:, :, i] = L.mul_l(s, pre[:, :, i], spec)
-            s = L.mul_l(s, x[:, :, i], spec)
+            xi, zero = _zero_as_one(x[:, :, i], spec)
+            res[:, :, i] = torch.where(zero[None], 0,
+                                       L.mul_l(s, pre[:, :, i], spec))
+            s = L.mul_l(s, xi, spec)
         out.append(L.pack(res).reshape(L.NWORDS, -1))
     return torch.cat(out, dim=1)
 
@@ -205,16 +219,38 @@ def inv_base_plain(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
 def inv_fwd(a: torch.Tensor, spec: L.FieldSpec):
     """Exclusive prefix products along each chain, in the elements' places,
     and the chain totals: a (8, n) words, n a multiple of 1,024 ->
-    (prefix (8, n), totals (8, inv_chains(n)))."""
+    (prefix (8, n), totals (8, inv_chains(n))). A zero element counts as
+    one in the products, so the totals are products of the nonzero
+    elements. Replaces pallas_field._inv_fwd_call.
+
+    On the card: levels of 8 tiles or more run inv_fwd_kernel, a thread a
+    chain, the serial chain fed from a ring of four steps staged in shared
+    memory by cp.async; shorter levels run inv_fwd_scan_kernel, a thread
+    per element and a prefix-product scan in shared memory (depth
+    log2(16)). Bound by bytes at 2^20 elements, by latency below. a must
+    be 16-byte aligned, as fresh tensors are."""
+    return _inv_fwd(a, spec, 0)
+
+
+def inv_fwd_mapped(a: torch.Tensor, spec: L.FieldSpec, scan: bool):
+    """inv_fwd with its thread mapping forced on the card (scan=False: a
+    thread a chain, True: the prefix scan), so that a measurement can time
+    both at one n; the inversion calls inv_fwd, which picks by n."""
+    return _inv_fwd(a, spec, 2 if scan else 1)
+
+
+def _inv_fwd(a, spec, mapping: int):
     if a.device.type == "cpu":
         return inv_fwd_plain(a, spec)
     n = a.shape[1]
     chains = inv_chains(n)
     dev = cuda.check([a], [(L.NWORDS, n)], "inv_fwd")
+    if a.data_ptr() % 16:
+        raise ValueError("inv_fwd: a must be 16-byte aligned")
     prefix = torch.empty_like(a)
     totals = torch.empty((L.NWORDS, chains), dtype=torch.int32, device=dev)
     cuda.launch("field_kernels", "zt_inv_fwd", _field_id(spec), a.data_ptr(),
-                prefix.data_ptr(), totals.data_ptr(), n, device=dev)
+                prefix.data_ptr(), totals.data_ptr(), n, mapping, device=dev)
     cuda.LAUNCHES["inv_fwd"] += 1
     return prefix, totals
 
@@ -222,7 +258,8 @@ def inv_fwd(a: torch.Tensor, spec: L.FieldSpec):
 def inv_bwd(a: torch.Tensor, prefix: torch.Tensor, tinv: torch.Tensor,
             spec: L.FieldSpec) -> torch.Tensor:
     """Inverses of a from its prefixes and the inverses of its chain
-    totals; replaces pallas_field._inv_bwd_call.
+    totals; replaces pallas_field._inv_bwd_call. Zero where a is zero, a
+    zero counting as one in the suffix products (as in inv_fwd).
 
     On the card: levels of 8 tiles or more run inv_bwd_kernel, two
     threads a chain (the serial suffix chain s <- s * a_i on one, the
@@ -284,10 +321,12 @@ def inv_base(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
 
 def batch_inv(a: torch.Tensor, spec: L.FieldSpec,
               plain: bool = False) -> torch.Tensor:
-    """Inverses of (8, n) nonzero Montgomery words, n a multiple of 1,024:
-    inv_fwd, the chain totals inverted recursively down to one block of
-    1,024, which inv_base inverts, then inv_bwd. ``plain=True`` runs the
-    plain versions on any device (the reference on the card)."""
+    """Inverses of (8, n) Montgomery words, n a multiple of 1,024: inv_fwd,
+    the chain totals inverted recursively down to one block of 1,024, which
+    inv_base inverts, then inv_bwd. A zero comes back zero, as inv_base
+    gives it: inv_fwd and inv_bwd count it as one, so the chain totals are
+    products of nonzero factors. ``plain=True`` runs the plain versions on
+    any device (the reference on the card)."""
     fwd, bwd, base = ((inv_fwd_plain, inv_bwd_plain, inv_base_plain) if plain
                       else (inv_fwd, inv_bwd, inv_base))
     if a.shape[1] == INV_BLOCK:

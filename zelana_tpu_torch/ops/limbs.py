@@ -278,23 +278,23 @@ def mont_batch_inv_nested(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Inverses of (8, N) Montgomery words, any N >= 1; zeros pass through
     as zero.
 
-    Montgomery's trick over chains of 16 (``field_kernels.batch_inv``): the
-    zeros are swapped for one, N is padded with one to a multiple of 1,024,
-    and the kernels run on CUDA tensors, their plain versions on CPU
-    tensors. The JAX package's
+    Montgomery's trick over chains of 16 (``field_kernels.batch_inv``),
+    whose kernels count a zero as one in the products and give it back
+    zero, so no mask or select runs around them. A ragged N is padded with
+    zeros to a multiple of 1,024 (a fresh tensor, whose rows the kernels'
+    16-byte copies need aligned, as they do a misaligned or non-contiguous
+    input). The kernels run on CUDA
+    tensors, their plain versions on CPU tensors. The JAX package's
     ``mont_batch_inv`` and ``mont_batch_inv_logdepth`` compute the same
     function by other algorithms; here both names are this function."""
     from . import field_kernels as FK
 
     n = a.shape[1]
-    zero = is_zero(a)
-    one = to_tensor(spec.one_mont.reshape(NWORDS, 1), a.device)
-    safe = select(zero, one, a)
     pad = -n % FK.INV_BLOCK
-    if pad:
-        safe = torch.cat([safe, one.expand(NWORDS, pad)], dim=1)
-    out = FK.batch_inv(safe, spec)[:, :n]
-    return select(zero, torch.zeros_like(out), out)
+    if pad or not a.is_contiguous() or a.data_ptr() % 16:
+        a = torch.cat([a, a.new_zeros((NWORDS, pad))], dim=1)
+    out = FK.batch_inv(a, spec)
+    return out[:, :n].contiguous() if pad else out
 
 
 mont_batch_inv = mont_batch_inv_nested
