@@ -6,12 +6,18 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: card name and power limit, CUDA and nvcc versions, and the
-     build of the nine kernels from zelana_tpu_torch/csrc (one nvcc per
+     build of the kernels from zelana_tpu_torch/csrc (one nvcc per
      source, in parallel), with ptxas register and spill counts;
   2. `kernels`: each kernel against its plain PyTorch version on the card,
      exact equality: mont_mul (2^16 Fr, Fq and BLS12-381 Fr, with 0, 1 and
-     p - 1), one butterfly stage (n = 2^16), both also at the L2 prove's
-     shapes (2^13 Fr, 2^12 pairs) and timed there, runscan in its four
+     p - 1, and at the shapes Poseidon's rounds give it: 1, 3 and 9 times
+     2^15 lanes of BN254 Fr, 2^12 of BN254 and BLS12-381 Fr); ntt_pass,
+     the NTT's pass kernel, in the five kinds of transform (ntt, intt,
+     coset_ntt, coset_intt, the witness map's
+     quotient) at 2^13 and 2^21 by the launcher's split and by every
+     forced split of SPLITS_2_13 / SPLITS_2_21, each timed beside its
+     bound, the L2 witness map (2^13) as a whole and a one-element fill
+     (the floor of a launch); runscan in its four
      variants on a real schedule over a 2^12-point pool and bucket_tail
      (G1, G2) on that schedule's level-2 emit, step (G1, G2, general and
      mixed) at S = 2^14 by slot ids and by pairing in one round and in
@@ -39,7 +45,8 @@ Phases (any failure exits non-zero and prints no result):
   3. `slice`: prove and prove_many over the L2 block circuit with
      artifacts/l2_dummy_pk.npz, every proof checked by verify, the
      batch_id = 1 proof byte-equal to the vector the JAX package recorded;
-     launch counts of the prover's four kernels on this run; one more
+     launch counts of the prover's kernels on this run (21 ntt_pass a
+     proof, 7 transforms of 3 passes, and no mont_mul, asserted); one more
      prove under torch.profiler gives the device's idle share;
   4. `keygen`: keygen of the L2 dummy circuit and Groth16ChunkProver.setup
      of the (1,0,1) depth-1 chunk, each equal array for array to the JAX
@@ -47,7 +54,9 @@ Phases (any failure exits non-zero and prints no result):
      zelana_tpu_torch/testdata/chunk_101_d1_proof.json, and
      prove_synthesized equal to the DSL prove on that chunk;
   5. `chunk`: the witness map at 2^21 against its plain version on the
-     card, and G1 / G2 MSMs at chunk size against their closed form (pools
+     card, its inputs unchanged, three calls under torch.profiler (no
+     device kernel but ntt_pass_kernel allowed, 21 launches a call), and
+     G1 / G2 MSMs at chunk size against their closed form (pools
      of synthetic points); on one full 2^16-point segment of each curve the
      lane sweep (the whole segment's device time per level-1 lane count and
      level-2 cap), the kernel times at the earlier shapes (8,192 / 2,048
@@ -64,14 +73,15 @@ Phases (any failure exits non-zero and prints no result):
      kernels left on its device, the peak device memory, and R, R2 and K2
      of the chunk's z schedules;
   7. one JSON line of per-kernel numbers (launches: the prover's kernels
-     on the L2 slice, step on the production keygen, mimc_permute on the
-     hashes, inv_fwd / inv_bwd / inv_base on the inversions), the card, the
-     result line.
+     on the L2 slice, step on the production keygen, mimc_permute and
+     mont_mul (Poseidon's rounds) on the hashes, inv_fwd / inv_bwd /
+     inv_base on the inversions), the card, the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import functools
 import itertools
 import json
@@ -91,7 +101,7 @@ CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
           "production")
-SLICE_KERNELS = ("mont_mul", "butterfly", "runscan", "bucket_tail")
+SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
 def log(*a):
@@ -202,32 +212,85 @@ def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
     return s.elapsed_time(e) / reps
 
 
-def device_ms(torch, fn, reps: int = 20, tries: int = 3) -> float:
-    """Mean device time per run of fn's kernels, from torch.profiler's
-    device events over `reps` runs after a warm-up. CUDA events around
-    back-to-back runs measure the host's launch rate instead when a kernel
-    runs shorter than its wrapper's launch takes (the inversion's small
-    levels). Now and then the profiler returns a window this short (a few
-    tenths of a millisecond on the device) without its device events; the
-    window is then profiled again, `tries` times in all, each miss
-    logged."""
-    from torch.autograd import DeviceType
+@contextlib.contextmanager
+def profiled(torch):
+    """torch.profiler over the host and the card; the card is synchronized
+    before the window closes."""
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, tries + 1):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_profile(torch, fn, reps: int = 20, kernels: int = 0,
+                   tries: int = 3):
+    """(device time a run, device kernels a run, the device events) of fn,
+    from torch.profiler's device events over `reps` runs after a warm-up.
+    CUDA events around back-to-back runs measure the host's launch rate
+    instead when a kernel runs shorter than its wrapper's launch takes.
+    Now and then the profiler returns a window short of its device events
+    (late in a long process: 6 of 20 one-kernel calls missing, or all of
+    them). One rule for that: up to `tries` windows are profiled; a window
+    that holds reps x `kernels` device kernels (the kernels a run launches,
+    or at least launches, where the caller knows them) ends the search;
+    the window with the most kernels counts, read per run over the runs
+    its kernels cover (over `reps` where `kernels` is 0, and then every
+    try is made), and a short one is logged. Where every window is empty,
+    the time is spin_ms's, the kernels a run None and the events empty."""
+    best, most = [], -1
+    for _ in range(tries):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled(torch) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        if any(e.device_type != DeviceType.CPU for e in prof.key_averages()):
+        events = device_events(prof, empty_ok=True)
+        seen = sum(e.count for e in events)
+        if seen > most:
+            best, most = events, seen
+        if kernels and seen >= reps * kernels:
             break
-        log(f"  the profile held no device events (try {attempt} of "
-            f"{tries})")
-    return sum(e.self_device_time_total
-               for e in device_events(prof)) / 1e3 / reps
+    if not best:
+        ms = spin_ms(torch, fn, reps)
+        log(f"  {tries} profiles held no device events: {ms:.5f} ms a run "
+            f"by CUDA events behind a spin kernel (spin_ms)")
+        return ms, None, []
+    runs = min(reps, most / kernels) if kernels else reps
+    if runs < reps:
+        log(f"  the fullest of {tries} profiles held {most} device kernels "
+            f"of {reps * kernels}: read over the {runs:.2f} runs they cover")
+    return (sum(e.self_device_time_total for e in best) / 1e3 / runs,
+            most / runs, best)
+
+
+def spin_ms(torch, fn, reps: int = 20) -> float:
+    """Mean time of fn over `reps` back-to-back runs by CUDA events that
+    the host queues behind a spin kernel long enough to cover its launches,
+    so that the card runs them without the host's gaps: a little above the
+    profiler's device time (tools/profile_windows.py sets them side by
+    side)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * reps * host_s, 1.0) * 2e9))  # ~2 GHz
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def device_ms(torch, fn, reps: int = 20, kernels: int = 0) -> float:
+    """device_profile's device time a run."""
+    return device_profile(torch, fn, reps, kernels)[0]
 
 
 def rotating(fn, inputs):
@@ -298,6 +361,7 @@ def phase_kernels(torch, dev, report) -> list:
 
     from zelana_tpu_torch.curves import g1 as G1, g2 as G2
     from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.hashes import poseidon as P
     from zelana_tpu_torch.ops import curve_kernels as CK
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
@@ -346,26 +410,27 @@ def phase_kernels(torch, dev, report) -> list:
         f"{bls_bound[0]:.4f} ms ({bls_bound[1]})")
     report["mont_mul_bls12_381_2_16"] = {"ms": bls_ms,
                                          "bound_ms": bls_bound[0]}
+    # the shapes Poseidon's rounds give it on the hashes path, where its
+    # launches are counted: (8, lanes) for a partial round's s-box,
+    # (8, 3 lanes) for a full round's, (8, 9 lanes) for the MDS products;
+    # 2^15 lanes of BN254 8/56, 2^12 of BN254 8/57 and BLS12-381 8/57
+    for name, cfg, lanes in (("BN254 8/56", P.bn254_config(), 1 << 15),
+                             ("BN254 8/57", P.bn254_config_57(), 1 << 12),
+                             ("BLS12-381 8/57", P.bls12_381_config(),
+                              1 << 12)):
+        spec = L.FieldSpec(cfg.modulus)
+        for width in (1, cfg.width, cfg.width ** 2):
+            a, b = (rand_words(torch, rng, spec.modulus >> 224,
+                               width * lanes, dev) for _ in range(2))
+            err = max(err, check(
+                f"mont_mul Poseidon {name} (8, {width} x {lanes})",
+                FK.mont_mul(a, b, spec), FK.mont_mul_plain(a, b, spec)))
     bms, by = bound_ms(2 * n * 96, 2 * n * MUL_OPS)
     kernels.append(_entry("mont_mul", "zelana_tpu_torch/csrc/field_kernels.cu",
                           "zelana_tpu/ops/pallas_field.py:136", err, ms,
                           plain, bms, by))
 
-    # one butterfly stage at n = 2^16 (2^15 pairs)
-    m = n // 2
-    a, b, tw = (rand_words(torch, rng, FR >> 224, m, dev) for _ in range(3))
-    ke, ko = FK.butterfly(a, b, tw, L.FR)
-    pe, po = FK.butterfly_plain(a, b, tw, L.FR)
-    err = max(check("butterfly even", ke, pe), check("butterfly odd", ko, po))
-    ms = cuda_ms(torch, lambda: FK.butterfly(a, b, tw, L.FR), 20)
-    plain = cuda_ms(torch, lambda: FK.butterfly_plain(a, b, tw, L.FR), 1,
-                    False)
-    bms, by = bound_ms(m * 160, m * MUL_OPS)
-    kernels.append(_entry("butterfly",
-                          "zelana_tpu_torch/csrc/field_kernels.cu",
-                          "zelana_tpu/ops/pallas_field.py:462", err, ms,
-                          plain, bms, by))
-    _l2_shapes(torch, dev, rng, check, kernels[-2:], report)
+    kernels.append(_ntt_kernel(torch, dev, rng, check, report))
 
     # runscan, four variants, on a real schedule over a 2^12-point pool;
     # bucket_tail on that schedule's level-2 emit
@@ -477,39 +542,164 @@ def phase_kernels(torch, dev, report) -> list:
     return kernels
 
 
-def _l2_shapes(torch, dev, rng, check, entries, report) -> None:
-    """mont_mul and butterfly at the L2 prove's shapes, where their launch
-    counts come from (the witness map at domain 2^13: mont_mul over 2^13
-    Fr, butterfly stages of 2^12 pairs): checked against the plain version
-    and timed by device time beside the bound; added to their entries as
-    l2_ms, l2_bound_ms and l2_bound_by."""
-    from zelana_tpu_torch.fields.bn254 import R as FR
-    from zelana_tpu_torch.ops import field_kernels as FK
-    from zelana_tpu_torch.ops import limbs as L
+# forced splits of the 2^13 transform: every two-pass split that fits a
+# tile, three and more passes, and a pass per stage (the earlier launch
+# pattern); of the 2^21 one, other three-pass splits
+SPLITS_2_13 = [[k, 13 - k] for k in range(2, 12)] + [
+    [5, 4, 4], [4, 5, 4], [4, 4, 5], [5, 5, 3], [6, 4, 3], [3, 3, 7],
+    [1, 1, 11], [4, 3, 3, 3], [3, 3, 3, 2, 2], [1] * 13]
+SPLITS_2_21 = [[8, 8, 5], [5, 8, 8], [8, 7, 6]]
 
-    n = 1 << 13
-    a, b = (rand_words(torch, rng, FR >> 224, n, dev) for _ in range(2))
-    err = check("mont_mul Fr 2^13", FK.mont_mul(a, b, L.FR),
-                FK.mont_mul_plain(a, b, L.FR))
-    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
-    m = n // 2
-    x, y, tw = (rand_words(torch, rng, FR >> 224, m, dev) for _ in range(3))
-    for got, want in zip(FK.butterfly(x, y, tw, L.FR),
-                         FK.butterfly_plain(x, y, tw, L.FR)):
-        err = check("butterfly Fr 2^12 pairs", got, want)
-        entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], err)
-    for entry, fn, nbytes, ops in (
-            (entries[0], lambda: FK.mont_mul(a, b, L.FR), n * 96,
-             n * MUL_OPS),
-            (entries[1], lambda: FK.butterfly(x, y, tw, L.FR), m * 160,
-             m * MUL_OPS)):
-        ms = device_ms(torch, fn)
-        bms, by = bound_ms(nbytes, ops)
-        entry.update(l2_ms=ms, l2_bound_ms=bms, l2_bound_by=by)
-        report[f"{entry['name']}_l2_shape"] = {"ms": ms, "bound_ms": bms,
-                                               "bound_by": by}
-        log(f"  {entry['name']} at the L2 prove's shape: {ms:.5f} ms on the "
-            f"device, bound {bms:.5f} ms ({by}), {bms / ms:.1%} of it")
+
+def ntt_products(kind: str, log_n: int, built: bool = False) -> int:
+    """Montgomery products one transform of 2^log_n elements needs. Stage s
+    of the DIT network multiplies by w^k, k < 2^s, and one butterfly in
+    2^s multiplies by w^0 = 1: (log_n - 2) 2^(log_n - 1) + 1 products over
+    the stages (stage 0's are all by one). Then n for the scaling (1/n,
+    g^j, or 1/n g^-j as one table) and, for the quotient, n for a b and n
+    for 1/(Z n) g^-j as one table. `built`: what the pass kernel does,
+    every product of stages 1 and up, (log_n - 1) 2^(log_n - 1), and the
+    quotient's 1/Z apart."""
+    n = 1 << log_n
+    scale = {"ntt": 0, "intt": 1, "coset_ntt": 1, "coset_intt": 1,
+             "quotient": 2}[kind]
+    if built:
+        return (log_n - 1) * n // 2 + (scale + (kind == "quotient")) * n
+    return (log_n - 2) * n // 2 + 1 + scale * n
+
+
+def witness_map_products(log_n: int, built: bool = False) -> int:
+    """Montgomery products the witness map at 2^log_n needs: seven
+    transforms' stages, n for a b, and n for each of four tables the
+    scalings fold into by linearity: 1/n g^j before each coset NTT (the
+    iNTT's 1/n in it) and 1/(Z n) g^-j after the quotient. `built`: the
+    passes as built, which scale by 1/n, g^j and 1/Z apart (9 n)."""
+    kinds = ["intt"] * 3 + ["coset_ntt"] * 3 + ["quotient"]
+    if built:
+        return sum(ntt_products(k, log_n, True) for k in kinds)
+    return 7 * ntt_products("ntt", log_n) + 5 * (1 << log_n)
+
+
+def _ntt_kernel(torch, dev, rng, check, report) -> dict:
+    """The NTT pass kernel against ntt_pass_plain, whole outputs: the five
+    kinds of transform (the four and the witness map's quotient) at 2^13
+    and 2^21 by the launcher's split, and every forced split in
+    SPLITS_2_13 / SPLITS_2_21 of each; the time of each (2^13: device
+    time; 2^21: CUDA events) beside its operation bound, the forced
+    splits' too; a one-element fill's device time, the floor of a launch;
+    the L2 witness map as a whole. Returns the kernels-line entry: ms /
+    plain_ms / bound_ms of one 2^21 ntt."""
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    rep = report["ntt_pass"] = {}
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    rep["fill_1_device_ms"] = device_ms(torch, one.zero_, 50, kernels=1)
+    log(f"  a one-element fill (the floor of a launch): "
+        f"{rep['fill_1_device_ms']:.5f} ms of device time")
+    err = 0
+    entry = None
+    for log_n, splits in ((13, SPLITS_2_13), (21, SPLITS_2_21)):
+        # 2^13 by device time over 50 calls (the profiler can drop a
+        # window's first kernels), 2^21 by CUDA events (launches are not
+        # the limit there)
+        how = "of device time" if log_n == 13 else "by events"
+
+        def timed(fn, passes):
+            return (device_ms(torch, fn, 50, kernels=passes) if log_n == 13
+                    else cuda_ms(torch, fn, 10))
+
+        n = 1 << log_n
+        plan = NTT.make_plan(n)
+        plan.on(dev)  # the device tables, made once, outside the timings
+        xs = [rand_words(torch, rng, FR >> 224, n, dev) for _ in range(3)]
+        for kind in NTT.KINDS:
+            ins = xs if kind == "quotient" else xs[:1]
+            t0 = time.time()
+            want = NTT.transform_split(kind, ins, plan, plain=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            split = NTT.default_split(log_n)
+            err = max(err, check(f"ntt_pass {kind} 2^{log_n} {split}",
+                                 NTT.transform_split(kind, ins, plan),
+                                 want))
+            for forced in splits:
+                err = max(err, check(
+                    f"ntt_pass {kind} 2^{log_n} forced {forced}",
+                    NTT.transform_split(kind, ins, plan, forced), want))
+            ms = timed(lambda: NTT.transform_split(kind, ins, plan),
+                       len(split))
+            # inputs, output, the twiddle table and the g^j / 1/n g^-j one
+            tables = 1 + (kind not in ("ntt", "intt"))
+            bms, by = bound_ms(32 * n * (len(ins) + 1 + tables),
+                               ntt_products(kind, log_n) * MUL_OPS)
+            # the operations of the passes as built, beside the bound
+            built = ntt_products(kind, log_n, True) * MUL_OPS / \
+                INT32_OPS_PER_S * 1e3
+            rep[f"{kind} 2^{log_n}"] = {
+                "split": split, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "built_bound_ms": built}
+            log(f"  ntt_pass {kind} 2^{log_n} {split}: {ms:.5f} ms {how}, "
+                f"bound {bms:.5f} ms ({by}), {bms / ms:.1%} of it (the "
+                f"passes as built {built:.5f} ms); plain {plain_ms:.1f} ms")
+            if kind == "ntt" and log_n == 21:
+                entry = _entry("ntt_pass",
+                               "zelana_tpu_torch/csrc/ntt_kernels.cu",
+                               "zelana_tpu/ops/pallas_field.py:462", 0, ms,
+                               plain_ms, bms, by)
+                entry["built_bound_ms"] = built
+        for forced in splits:
+            ms = timed(lambda: NTT.transform_split("ntt", xs[:1], plan,
+                                                   forced), len(forced))
+            rep[f"ntt 2^{log_n} forced {forced}"] = ms
+            log(f"  ntt_pass ntt 2^{log_n} forced {forced}: {ms:.5f} ms "
+                f"{how}")
+        del xs
+    entry["max_abs_err"] = err
+    small = rep["ntt 2^13"]
+    entry.update(l2_ms=small["ms"], l2_bound_ms=small["bound_ms"],
+                 l2_bound_by=small["bound_by"])
+    _l2_witness_map(torch, dev, rng, check, entry, report)
+    return entry
+
+
+def _l2_witness_map(torch, dev, rng, check, entry, report) -> None:
+    """The witness map at the L2 prove's domain (2^13) as a whole: against
+    its plain version, its launches (7 transforms x default_split(13)), and
+    its time by device time and by CUDA events beside its bound."""
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.groth16.prove import witness_map
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    log_n = 13
+    n = 1 << log_n
+    plan = NTT.make_plan(n)
+    evals = [rand_words(torch, rng, FR >> 224, n, dev) for _ in range(3)]
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    h = witness_map(evals, plan)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want = 7 * len(NTT.default_split(log_n))
+    if launches != {"ntt_pass": want}:
+        raise AssertionError(f"2^13 witness map launched {launches}, not "
+                             f"{want} ntt_pass")
+    entry["max_abs_err"] = max(entry["max_abs_err"], check(
+        "ntt_pass witness map 2^13", h, witness_map(evals, plan, plain=True)))
+    ms = device_ms(torch, lambda: witness_map(evals, plan), kernels=want)
+    ev = cuda_ms(torch, lambda: witness_map(evals, plan), 20)
+    products = witness_map_products(log_n)
+    bms, by = bound_ms(32 * n * 4, products * MUL_OPS)
+    built = witness_map_products(log_n, built=True)
+    report["witness_map_2_13"] = {
+        "device_ms": ms, "events_ms": ev, "launches": launches,
+        "bound_ms": bms, "bound_by": by, "products": products,
+        "built_products": built}
+    log(f"  witness map 2^13 (the L2 prove's): {ms:.5f} ms of device time, "
+        f"{ev:.4f} ms by events, launches {launches}; bound {bms:.5f} ms "
+        f"({by}, {products} products; the passes as built do {built}), "
+        f"{bms / ms:.1%} of it")
 
 
 def _step_keygen_chunk(torch, dev, rng, check) -> dict:
@@ -686,7 +876,7 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
         them from HBM, as the bound assumes; warm_ms: fn on one input, part
         of it left in the 50 MB L2 by the launch before); events_ms: CUDA
         events around back-to-back calls, the host's launches included."""
-        ms = device_ms(torch, cold or fn)
+        ms = device_ms(torch, cold or fn, kernels=1)
         events = cuda_ms(torch, fn, 20)
         plain = cuda_ms(torch, pfn, 1, False)
         nbytes, ops = inv_work(name, width, spec)
@@ -695,7 +885,7 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
                     "bound_ms": bms, "bound_by": by}
         warm = ""
         if cold:
-            rep[key]["warm_ms"] = device_ms(torch, fn)
+            rep[key]["warm_ms"] = device_ms(torch, fn, kernels=1)
             warm = f", {rep[key]['warm_ms']:.4f} on one input (warm L2)"
         log(f"  {key}: {ms:.4f} ms on the device{warm} ({events:.4f} ms by "
             f"CUDA events around back-to-back calls), plain {plain:.2f} ms, "
@@ -765,7 +955,8 @@ def _inversion_kernels(torch, dev, rng, check, report) -> list:
             ladder = bound_ms(*inv_work("inv_base ladder", FK.INV_BLOCK,
                                         spec))
             warp = a[:, :32].contiguous()
-            floor = device_ms(torch, lambda: FK.inv_base(warp, spec))
+            floor = device_ms(torch, lambda: FK.inv_base(warp, spec),
+                              kernels=1)
             rep["inv_base ladder"] = {
                 "per_element": fermat_muls(p) * MUL_OPS,
                 "bound_ms": ladder[0], "bound_by": ladder[1],
@@ -819,7 +1010,7 @@ def _inv_mappings(torch, dev, rng, check, rep, err, name) -> None:
             err[name] = max(err[name], *(
                 check(f"{name} Fr {n}, {what} forced, output {k}", g, w)
                 for k, (g, w) in enumerate(zip(fn(), want))))
-            ms[what] = device_ms(torch, fn)
+            ms[what] = device_ms(torch, fn, kernels=1)
         below = cuda.lib("field_kernels").zt_inv_scan_below(
             int(name == "inv_bwd"))
         picked = "scan" if FK.inv_chains(n) < below else long
@@ -898,7 +1089,8 @@ def phase_hashes(torch, dev, report) -> dict:
                           if v != before[k]}
         rep[name] = {"first_call_s": time.time() - t0,
                      "launches": launches[name]}
-    path = {"mimc_permute": cuda.LAUNCHES["mimc_permute"]}
+    # mont_mul's launches on the main path are Poseidon's rounds
+    path = {k: cuda.LAUNCHES[k] for k in ("mimc_permute", "mont_mul")}
     log(f"launches on the hashing path: {dict(cuda.LAUNCHES)}")
 
     for (name, fn, cols, spec, host), out in zip(runs, outs):
@@ -1028,27 +1220,26 @@ def _inversion_profile(torch, a, spec, rep, reps: int = 10) -> None:
     them). The profiler can drop the first kernels of a window, so the
     window holds several inversions and the counts are logged against
     INV_PROFILE. Each level's kernels are timed in `kernels`."""
-    from torch.profiler import ProfilerActivity, profile
-
     from zelana_tpu_torch.ops import limbs as L
 
     n = a.shape[1]
     L.mont_batch_inv_nested(a, spec)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            L.mont_batch_inv_nested(a, spec)
-        torch.cuda.synchronize()
-    events = device_events(prof)
 
     def ours(key):  # "void inv_fwd_kernel<1>(...)" -> "inv_fwd_kernel"
         name = key.split("<")[0].split()[-1] if key.strip() else ""
         return name if name in INV_PROFILE else None
 
-    others = [e.key for e in events if ours(e.key) is None]
-    counts = {k: sum(e.count for e in events if ours(e.key) == k)
-              for k in INV_PROFILE}
+    for _ in range(5):  # a window that missed a kernel is profiled again
+        with profiled(torch) as prof:
+            for _ in range(reps):
+                L.mont_batch_inv_nested(a, spec)
+        events = device_events(prof, empty_ok=True)
+        others = [e.key for e in events if ours(e.key) is None]
+        counts = {k: sum(e.count for e in events if ours(e.key) == k)
+                  for k in INV_PROFILE}
+        if all(counts.values()):
+            break
     kern = sum(e.self_device_time_total for e in events) / 1e3
     per = kern / max(counts["inv_base_kernel"], 1)
     rep[f"profile {n}"] = {
@@ -1098,6 +1289,7 @@ def phase_slice(torch, dev, report) -> dict:
                                                 public_inputs_of)
     from zelana_tpu_torch.groth16.verify import verify
     from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import ntt as NTT
 
     with open("zelana_tpu_torch/testdata/l2_dummy_proof.json") as f:
         want = json.load(f)
@@ -1116,7 +1308,14 @@ def phase_slice(torch, dev, report) -> dict:
     torch.cuda.synchronize()
     t2 = time.time()
     launches = {k: cuda.LAUNCHES[k] for k in SLICE_KERNELS}
-    log(f"launches on the slice: {launches}")
+    log(f"launches on the slice (5 proofs): {launches}")
+    passes = 7 * len(NTT.default_split(13))
+    if launches["ntt_pass"] != 5 * passes or launches["mont_mul"]:
+        raise AssertionError(f"5 L2 proofs: {launches}, expected "
+                             f"{5 * passes} ntt_pass (7 transforms x "
+                             f"{passes // 7} passes) and no mont_mul")
+    launches.pop("mont_mul")
+    log(f"ntt_pass launches a prove: {launches['ntt_pass'] // 5}")
 
     proofs = [first] + many
     for i, p in enumerate(proofs):
@@ -1142,10 +1341,7 @@ def phase_slice(torch, dev, report) -> dict:
 
     # where one prove's time goes: device busy time from the profiler's
     # kernel records against the host clock
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         t0 = time.time()
         prove(pk, circuit, batch_id=6)
         torch.cuda.synchronize()
@@ -1266,8 +1462,6 @@ def phase_chunk(torch, dev, report) -> None:
     from zelana_tpu_torch.curves import g1 as G1, g2 as G2
     from zelana_tpu_torch.fields.bn254 import R as FR
     from zelana_tpu_torch.groth16.prove import witness_map
-    from zelana_tpu_torch.ops import field_kernels as FK
-    from zelana_tpu_torch.ops import limbs as L
     from zelana_tpu_torch.ops import msm_scan as MSM
     from zelana_tpu_torch.ops import ntt as NTT
 
@@ -1278,8 +1472,12 @@ def phase_chunk(torch, dev, report) -> None:
         f"{time.time() - t0:.2f} s")
     evals = [rand_words(torch, rng, FR >> 224, CHUNK_DOMAIN, dev)
              for _ in range(3)]
+    before = [e.clone() for e in evals]
     h = witness_map(evals, plan)
     torch.cuda.synchronize()
+    if not all(torch.equal(e, b) for e, b in zip(evals, before)):
+        raise AssertionError("the 2^21 witness map wrote its inputs")
+    del before
     wm_ms = cuda_ms(torch, lambda: witness_map(evals, plan), 3)
     t0 = time.time()
     h_plain = witness_map(evals, plan, plain=True)
@@ -1292,19 +1490,8 @@ def phase_chunk(torch, dev, report) -> None:
         raise AssertionError("2^21 witness map differs from its plain "
                              "version")
     report["witness_map_2_21_ms"] = wm_ms
-    n, m = CHUNK_DOMAIN, CHUNK_DOMAIN // 2
-    a, b = evals[0], evals[1]
-    x, y, w = (t[:, :m].contiguous() for t in evals)
-    for name, fn, nbytes, ops in (
-            ("mont_mul 2^21", lambda: FK.mont_mul(a, b, L.FR), n * 96,
-             n * MUL_OPS),
-            ("butterfly 2^20 pairs", lambda: FK.butterfly(x, y, w, L.FR),
-             m * 160, m * MUL_OPS)):
-        ms = cuda_ms(torch, fn, 20)
-        bms, by = bound_ms(nbytes, ops)
-        log(f"  {name}: {ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        report[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
-    del h, h_plain, evals, a, b, x, y, w
+    _witness_map_profile(torch, evals, plan, report)
+    del h, h_plain, evals
 
     # MSMs at chunk size: pools tile P_j = (j+1) G, j < 4096, so the answer
     # is (sum_i s_i * ((i mod 4096) + 1) mod r) G
@@ -1342,6 +1529,48 @@ def phase_chunk(torch, dev, report) -> None:
             seg = slice(0, MSM.CHUNK_N)
             _segment_study(torch, pool[:, seg], digits[:, seg], curve, report)
         del pool, segs
+
+
+def _witness_map_profile(torch, evals, plan, report, reps: int = 3) -> None:
+    """`reps` 2^21 witness maps under torch.profiler (device_profile):
+    device time per call and its bound; the run fails if any device kernel
+    but ntt_pass_kernel ran (the scalings and the quotient are inside its
+    passes), if a call launched other than 7 x default_split(21) passes,
+    or if none of five windows held a pass kernel."""
+    from zelana_tpu_torch.groth16.prove import witness_map
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    log_n = plan.domain.log_size
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    witness_map(evals, plan)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want = 7 * len(NTT.default_split(log_n))
+    ms, _, events = device_profile(
+        torch, lambda: witness_map(evals, plan), reps, kernels=want,
+        tries=5)
+    others = [e.key for e in events if "ntt_pass_kernel" not in e.key]
+    count = sum(e.count for e in events if "ntt_pass_kernel" in e.key)
+    products = witness_map_products(log_n)
+    bms, by = bound_ms(32 * plan.n * 4, products * MUL_OPS)
+    built = witness_map_products(log_n, built=True)
+    report["witness_map_2_21_profile"] = {
+        "device_ms": ms, "launches": launches, "kernels_seen": count,
+        "others": others, "bound_ms": bms, "bound_by": by,
+        "products": products, "built_products": built,
+        "built_bound_ms": built * MUL_OPS / INT32_OPS_PER_S * 1e3}
+    log(f"witness map 2^21 under the profiler, {reps} calls: {ms:.3f} ms of "
+        f"device time a call, bound {bms:.3f} ms ({by}, {products} "
+        f"products; the passes as built do {built}), {bms / ms:.1%} of it; "
+        f"ntt_pass_kernel x{count}; launches a call {launches}; other "
+        f"device kernels: {others or 'none'}")
+    if (others or launches != {"ntt_pass": want} or not count
+            or count > reps * want):
+        raise AssertionError(f"2^21 witness map: device kernels other than "
+                             f"ntt_pass_kernel {others}, or launches "
+                             f"{launches} / {count} against {want} a call")
 
 
 # the earlier stream shape (the JAX package's level-1 lanes, with 1,024
@@ -1472,8 +1701,6 @@ def _tiled_scalar(limbs, tile: int) -> int:
 
 def phase_production(torch, report) -> dict:
     """Returns the kernel launches of the production keygen."""
-    from torch.profiler import ProfilerActivity, profile
-
     from zelana_tpu_torch.groth16.keys import prepare_queries
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
@@ -1488,8 +1715,7 @@ def phase_production(torch, report) -> dict:
     cuda.reset_launches()
     # under the profiler: its device busy time splits keygen's wall time
     # into device work and the host around it
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         phase_log_start()
         t0 = time.time()
         prover = Groth16ChunkProver.setup(cap, depth, seed=0)
@@ -1566,8 +1792,7 @@ def phase_production(torch, report) -> dict:
 
     # one chunk prove under the profiler: device busy time against wall
     cuda.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         phase_log_start()
         t0 = time.time()
         again = prover.prove_chunk(chunks[0], batch_id=7)
@@ -1635,7 +1860,7 @@ def _z_schedules(prover, chunk, rep) -> None:
             for (R, l, R2, l2, K2), v in sorted(shapes.items())))
 
 
-def device_events(prof) -> list:
+def device_events(prof, empty_ok: bool = False) -> list:
     """The profile's device-side events (kernels, copies, sets). A host op
     (aten::copy_, aten::cat) carries the time of the kernels it launched
     as its own device time too, so summing every event counts those
@@ -1644,7 +1869,7 @@ def device_events(prof) -> list:
 
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU]
-    if not events:
+    if not events and not empty_ok:
         raise AssertionError("the profile holds no device events")
     return events
 

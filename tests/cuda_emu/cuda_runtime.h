@@ -53,6 +53,12 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 
+inline unsigned __brev(unsigned x) {  // bit 31 - i of x in bit i
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+    return r;
+}
+
 inline std::vector<uint32_t> emu_dyn;  // the launch's dynamic shared memory
 inline uint32_t emu_cf;                // the PTX carry flag (CC.CF)
 

@@ -8,7 +8,8 @@ two kernels (six threads per complete add, four barriers an add), the
 safegcd base inverse over the three fields, inv_fwd in both of its thread
 mappings (a thread a chain behind a cp.async ring; a prefix scan over a
 thread per element), inv_bwd in both of its (two threads a chain behind a
-cp.async ring; a suffix scan), and both on inputs with zeros. This holds
+cp.async ring; a suffix scan), both on inputs with zeros, and the NTT pass
+kernel (ntt_kernels.cu) pass by pass in every kind of transform. This holds
 the kernels' indexing, their barriers and their shared memory before a
 card sees them; the card runs the same comparison in chip_smoke.py. Equality is exact."""
 
@@ -26,6 +27,7 @@ from zelana_tpu_torch.ops import curve_kernels as CK
 from zelana_tpu_torch.ops import cuda
 from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as L
+from zelana_tpu_torch.ops import ntt as NTT
 
 torch.set_num_threads(1)  # many small int64 ops: threads only contend
 
@@ -86,7 +88,12 @@ def lib():
 
 @pytest.fixture(scope="module")
 def flib():
-    return _build("field_kernels", 8)
+    return _build("field_kernels", 7)
+
+
+@pytest.fixture(scope="module")
+def nlib():
+    return _build("ntt_kernels", 1)
 
 
 def _rand_words(rng, C: int, n: int) -> torch.Tensor:
@@ -277,3 +284,72 @@ def test_emulated_zeros_match_plain(flib, kernel, mapping):
     want = FK.inv_bwd_plain(a, prefix, tinv, spec)
     assert torch.equal(got, want)
     assert not want[:, (a == 0).all(dim=0)].any()
+
+
+@pytest.mark.parametrize("log_n,split", [
+    (10, [10]), (10, [5, 5]), (10, [4, 3, 3]), (10, [1, 9]), (11, [11]),
+    (11, None), (12, None), (13, None), (13, [7, 6]), (13, [3, 10])])
+def test_emulated_ntt_passes_match_plain(nlib, monkeypatch, log_n, split):
+    """Every kind of transform (no prologue or epilogue; 1/n; g^j; 1/n
+    g^-j; the quotient (a b - c) / Z with 1/n g^-j) through the emulated
+    pass kernel, each pass against ntt_pass_plain on the same input: the
+    card's own split (None) at 2^11 to 2^13, and forced splits from a pass
+    of one stage to one of all 11 at 2^11 (64 KB of dynamic shared
+    memory; ten at 2^13 with the spread bits cut to fit a tile). The first pass leaves
+    its inputs unchanged; later passes run in place."""
+    n = 1 << log_n
+    plan = NTT.make_plan(n)
+    rng = np.random.default_rng(log_n + 100 * len(split or []))
+    xs = [_field_words(rng, L.FR, n) for _ in range(3)]
+    plain = NTT.ntt_pass_plain
+    launched = []
+
+    def emulated(ins, twst, s0, s1, pro=0, ptab=None, pk=None, epi=0,
+                 etab=None, ek=None):
+        before = [t.clone() for t in ins]
+        want = plain(ins, twst, s0, s1, pro, ptab, pk, epi, etab, ek)
+        out = torch.empty_like(ins[0]) if s0 == 0 else ins[0]
+        ptr = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
+        assert nlib.zt_ntt_pass(
+            *ptr, out.data_ptr(), twst.data_ptr(),
+            None if ptab is None else ptab.data_ptr(),
+            None if etab is None else etab.data_ptr(),
+            NTT._host_words(pk), NTT._host_words(ek), n, s0, s1, pro, epi,
+            None) == 0
+        assert torch.equal(out, want), (s0, s1, pro, epi)
+        if s0 == 0:
+            assert all(torch.equal(t, b) for t, b in zip(ins, before))
+        launched.append((s0, s1))
+        return out
+
+    monkeypatch.setattr(NTT, "ntt_pass_plain", emulated)
+    split = split or NTT.default_split(log_n)
+    for kind in NTT.KINDS:
+        ins = xs if kind == "quotient" else xs[:1]
+        NTT.transform_split(kind, ins, plan, split)
+    assert len(launched) == len(NTT.KINDS) * len(split)
+
+
+def test_emulated_ntt_pass_refusals(nlib):
+    """The launcher refuses what the kernel does not take: n not a power
+    of two, stages past log n, more stages than a tile holds, a prologue
+    off the first pass or an epilogue off the last, a missing table."""
+    n = 1 << 10
+    x = _field_words(np.random.default_rng(3), L.FR, n)
+    out = torch.empty_like(x)
+    p = x.data_ptr()
+
+    def rc(n=n, s0=0, s1=10, pro=0, epi=0, ptab=p, etab=p):
+        return nlib.zt_ntt_pass(p, p, p, out.data_ptr(), p, ptab, etab,
+                                NTT._host_words(np.ones(8)),
+                                NTT._host_words(np.ones(8)), n, s0, s1, pro,
+                                epi, None)
+
+    assert rc() == 0
+    assert rc(n=n - 1) == 1
+    assert rc(s1=11) == 1
+    assert rc(n=1 << 13, s0=0, s1=12) == 1
+    assert rc(s0=5, s1=10, pro=1) == 1
+    assert rc(s0=0, s1=5, epi=1) == 1
+    assert rc(pro=1, ptab=None) == 1
+    assert rc(epi=2, etab=None) == 1

@@ -15,6 +15,7 @@ from zelana_tpu.ops import limbs as JL
 from zelana_tpu_torch.fields.bn254 import P, R
 from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as TL
+from zelana_tpu_torch.ops import ntt as TN
 
 SPECS = [(JL.FQ, TL.FQ), (JL.FR, TL.FR), (JL.BLS_FR, TL.BLS_FR)]
 IDS = ["Fq", "Fr", "BLS12-381 Fr"]
@@ -80,7 +81,7 @@ def test_butterfly_matches_jax_stage():
     bt = JL.mont_mul(b, w, JL.FR)
     even = TL.words_from_limbs16(np.asarray(JL.add(a, bt, JL.FR)))
     odd = TL.words_from_limbs16(np.asarray(JL.sub(a, bt, JL.FR)))
-    ge, go = FK.butterfly(_words(a), _words(b), _words(w), TL.FR)
+    ge, go = FK.butterfly_plain(_words(a), _words(b), _words(w), TL.FR)
     assert (TL.to_numpy(ge) == even).all()
     assert (TL.to_numpy(go) == odd).all()
 
@@ -92,7 +93,7 @@ def test_wrappers_raise_off_cpu_without_cuda():
     with pytest.raises(ValueError):
         FK.mont_mul(meta, meta, TL.FR)
     with pytest.raises(ValueError):
-        FK.butterfly(meta, meta, meta, TL.FR)
+        TN.ntt_pass([meta], meta, 0, 8)
     with pytest.raises(ValueError):
         FK.mimc_permute(meta, meta[:, :3].T, TL.FR)
     with pytest.raises(ValueError):

@@ -19,7 +19,14 @@ from a fixed seed (`--parts`, default all):
     kernel), field_kernels.inv_fwd and inv_bwd at the three levels of a
     2^20 inversion (2^20, 2^16 and 4,096 elements, Fr), by device time
     (torch.profiler), and limbs.mont_batch_inv_nested at 2^20, Fr and Fq,
-    by CUDA events (the launches' gaps included) and by device time.
+    by CUDA events (the launches' gaps included) and by device time;
+  - ntt: groth16.prove.witness_map at 2^13 (the L2 prove's domain) and
+    2^21 (the production chunk's) by CUDA events and by device time, its
+    device kernels and the port's launches a call; ntt.ntt, intt,
+    coset_ntt and coset_intt at 2^13 by device time (50 calls a window,
+    the device kernels seen a call beside: the profiler can drop a
+    window's first kernels) and at 2^21 by CUDA events; and the device
+    time of a one-element fill, the floor of any launch.
 
 Both checkouts must expose those functions with the same signatures.
 """
@@ -30,23 +37,17 @@ import os
 import subprocess
 import sys
 
+# the device-time helpers of chip_smoke.py beside this checkout's root, one
+# rule for a profiler window that dropped kernels in both scripts; a
+# measured checkout's package comes first on sys.path (measure)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import cuda_ms, device_ms, device_profile  # noqa: E402
+
 ORDER = ("parent", "change", "change", "parent")
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-PARTS = ("keygen", "msm", "inversion")
+PARTS = ("keygen", "msm", "inversion", "ntt")
 
 
 def measure(root: str, parts) -> dict:
@@ -70,6 +71,8 @@ def measure(root: str, parts) -> dict:
     out = {}
     if "inversion" in parts:
         out.update(measure_inversion(torch, np, dev))
+    if "ntt" in parts:
+        out.update(measure_ntt(torch, np, dev))
     if "keygen" not in parts and "msm" not in parts:
         out["device"] = torch.cuda.get_device_name(0)
         return out
@@ -108,22 +111,11 @@ def measure(root: str, parts) -> dict:
     return out
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean device time per run of fn's kernels (torch.profiler's device
-    events): at the inversion's small levels CUDA events around
-    back-to-back calls time the host's launches, not the kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU) / 1e3 / reps
+def rand_words(torch, np, rng, spec, n, dev):
+    """(8, n) int32 words of random canonical elements of `spec`."""
+    w = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    w[7] %= spec.modulus >> 224
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
 def measure_inversion(torch, np, dev) -> dict:
@@ -135,9 +127,7 @@ def measure_inversion(torch, np, dev) -> dict:
     rng = np.random.default_rng(6)
 
     def words(spec, n):
-        w = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
-        w[7] %= spec.modulus >> 224
-        return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+        return rand_words(torch, np, rng, spec, n, dev)
 
     out = {}
     base = words(L.FR, FK.INV_BLOCK)
@@ -157,6 +147,47 @@ def measure_inversion(torch, np, dev) -> dict:
             torch, lambda: L.mont_batch_inv_nested(a, spec), 20)
         out[f"batch_inv_{name}_2_20_device_ms"] = device_ms(
             torch, lambda: L.mont_batch_inv_nested(a, spec), 20)
+    return out
+
+
+def measure_ntt(torch, np, dev) -> dict:
+    """The witness map and its four transforms through functions both
+    checkouts expose; random canonical words from a fixed seed."""
+    from zelana_tpu_torch.groth16.prove import witness_map
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    rng = np.random.default_rng(8)
+    out = {}
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    out["fill_1_device_ms"] = device_ms(torch, one.zero_, 50)
+    for log_n, reps in ((13, 50), (21, 10)):
+        n = 1 << log_n
+        plan = NTT.make_plan(n)
+        evals = [rand_words(torch, np, rng, L.FR, n, dev) for _ in range(3)]
+        for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            f = getattr(NTT, name)
+            key = f"{name}_2_{log_n}"
+            if log_n == 21:
+                out[f"{key}_ms"] = cuda_ms(torch, lambda: f(evals[0], plan),
+                                           reps)
+                continue
+            ms, kernels, _ = device_profile(
+                torch, lambda: f(evals[0], plan), reps)
+            out[f"{key}_device_ms"] = ms
+            out[f"{key}_device_kernels"] = kernels
+        wm = lambda: witness_map(evals, plan)  # noqa: E731
+        out[f"witness_map_2_{log_n}_ms"] = cuda_ms(torch, wm, reps)
+        ms, kernels, _ = device_profile(torch, wm, reps)
+        out[f"witness_map_2_{log_n}_device_ms"] = ms
+        out[f"witness_map_2_{log_n}_device_kernels"] = kernels
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        wm()
+        torch.cuda.synchronize()
+        out[f"witness_map_2_{log_n}_launches"] = sum(cuda.LAUNCHES.values())
+        del evals
     return out
 
 

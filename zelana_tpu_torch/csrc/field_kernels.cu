@@ -1,17 +1,16 @@
 // Elementwise and chained field kernels: the Montgomery multiply, the
-// radix-2 butterfly stage, the MiMC-91 permutation and the three pieces of
-// Montgomery batch inversion.
+// MiMC-91 permutation and the three pieces of Montgomery batch inversion.
+// (The NTT's butterfly stages run in ntt_kernels.cu.)
 //
 // mont_mul replaces pallas_field._mont_mul_call / mont_mul_pallas (reached
-// through limbs.mont_mul); butterfly replaces pallas_field.butterfly_call
-// (one DIT stage of ntt._ntt_core); mimc_permute replaces
-// pallas_field.mimc_permute_call; inv_fwd, inv_bwd and inv_base replace
-// _inv_fwd_call, _inv_bwd_call and _fermat_call (batch_inv_pallas).
+// through Poseidon's rounds, hashes/poseidon_batch.py); mimc_permute
+// replaces pallas_field.mimc_permute_call; inv_fwd, inv_bwd and inv_base
+// replace _inv_fwd_call, _inv_bwd_call and _fermat_call (batch_inv_pallas).
 //
 // What bounds them on an H100: a 256-bit CIOS multiply is ~264 32-bit
-// integer multiply instructions for 96 bytes of traffic (mont_mul) or 160
-// (butterfly), so on paper both sit near the balance of the integer
-// multiply rate and HBM bandwidth (PERF.md has the numbers). mimc_permute
+// integer multiply instructions for 96 bytes of traffic (mont_mul), so on
+// paper it sits near the balance of the integer multiply rate and HBM
+// bandwidth (PERF.md has the numbers). mimc_permute
 // does 364 multiplies per 64 bytes: bound by the multiply rate. inv_fwd /
 // inv_bwd do one or two multiplies per element moved, near the balance
 // too. inv_base inverts the recursion's 1,024-element base, which cannot
@@ -33,20 +32,6 @@ __global__ void mont_mul_kernel(const u32* __restrict__ a,
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     store<F>(out, n, i, mul(load<F>(a, n, i), load<F>(b, n, i)));
-}
-
-template <int F>
-__global__ void butterfly_kernel(const u32* __restrict__ a,
-                                 const u32* __restrict__ b,
-                                 const u32* __restrict__ tw,
-                                 u32* __restrict__ even,
-                                 u32* __restrict__ odd, long m) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    Fp<F> x = load<F>(a, m, i);
-    Fp<F> bt = mul(load<F>(b, m, i), load<F>(tw, m, i));
-    store<F>(even, m, i, add(x, bt));
-    store<F>(odd, m, i, sub(x, bt));
 }
 
 // MiMC with key 0 over BN254 Fr: x <- (x + c_r)^7 for r < rounds. The TPU
@@ -434,18 +419,6 @@ extern "C" int zt_mont_mul(int field, const void* a, const void* b, void* out,
     cudaStream_t s = (cudaStream_t)stream;
     ZT_BY_FIELD(field, mont_mul_kernel<F><<<blocks_for(n), kThreads, 0, s>>>(
                            (const u32*)a, (const u32*)b, (u32*)out, n));
-    return (int)cudaGetLastError();
-}
-
-// a, b, tw, even, odd: (8, m) words, m butterflies.
-extern "C" int zt_butterfly(int field, const void* a, const void* b,
-                            const void* tw, void* even, void* odd, long m,
-                            void* stream) {
-    if (m <= 0) return 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    ZT_BY_FIELD(field, butterfly_kernel<F><<<blocks_for(m), kThreads, 0, s>>>(
-                           (const u32*)a, (const u32*)b, (const u32*)tw,
-                           (u32*)even, (u32*)odd, m));
     return (int)cudaGetLastError();
 }
 

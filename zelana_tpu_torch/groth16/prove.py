@@ -5,7 +5,8 @@ Same pipeline and the same bytes as the JAX package's groth16/prove.py:
   1. synthesize the circuit -> matrices + full assignment z (host)
   2. witness map: A.z, B.z, C.z over the domain, iNTT to coefficients,
      coset NTT, (A.z * B.z - C.z) / Z on the coset, coset iNTT -> h(x)
-     coefficients                          [mont_mul + butterfly kernels]
+     coefficients: 7 transforms of P passes each, the scalings and the
+     quotient folded into their first and last passes  [ntt_pass kernel]
   3. five run-scan MSMs over the proving-key queries: a, b1, l, h in G1 and
      b2 in G2                           [runscan + bucket_tail kernels]
   4. assembly A = alpha + <a,z> + r*delta, B = beta + <b,z> + s*delta,
@@ -30,7 +31,6 @@ import torch
 from ..curves import g1 as G1, g2 as G2
 from ..device import resolve
 from ..fields.bn254 import R as FR
-from ..ops import field_kernels as FK
 from ..ops import limbs as L
 from ..ops import msm_scan as MSM
 from ..ops import ntt as NTT
@@ -45,16 +45,15 @@ from .stdrng import StdRng, rand_fp
 
 def witness_map(evals, plan: NTT.NttPlan, plain: bool = False):
     """The device chain of the witness map: evals = [A.z, B.z, C.z] as
-    (8, n) Montgomery words on one device -> (8, n) words of h(x)."""
-    mul = FK.mont_mul_plain if plain else FK.mont_mul
+    (8, n) Montgomery words on one device -> (8, n) words of h(x). Three
+    iNTTs (1/n in their last pass), three coset NTTs (g^j in their first),
+    then the coset iNTT whose first pass forms (a b - c) / Z and whose last
+    scales by 1/n g^-j: 7 P launches of the pass kernel on the card (P
+    passes a transform, ntt.default_split) and no other device op but the
+    outputs' allocation. The inputs are not written."""
     coeffs = [NTT.intt(x, plan, plain) for x in evals]
     cosets = [NTT.coset_ntt(x, plan, plain) for x in coeffs]
-    ab = mul(cosets[0], cosets[1], L.FR)
-    num = L.sub(ab, cosets[2], L.FR)
-    z_inv = pow(plan.domain.evaluate_vanishing_on_coset(), FR - 2, FR)
-    z_inv_b = L.broadcast(L.encode_mont([z_inv], L.FR)[:, 0], plan.n,
-                          num.device)
-    return NTT.coset_intt(mul(num, z_inv_b, L.FR), plan, plain)
+    return NTT.quotient_intt(*cosets, plan, plain)
 
 
 def witness_map_dispatch(A, B, C, z, num_instance, device="cuda"):

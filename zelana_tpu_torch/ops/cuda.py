@@ -27,11 +27,11 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PKG)  # the repo checkout
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(ROOT, "build", "zelana_tpu_torch")
-SOURCES = ("field_kernels", "curve_kernels")
+SOURCES = ("field_kernels", "curve_kernels", "ntt_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "butterfly": 0, "runscan": 0, "bucket_tail": 0,
+LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "runscan": 0, "bucket_tail": 0,
             "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
             "inv_base": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
@@ -106,7 +106,7 @@ def _declare(cdll) -> None:
     p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     sigs = {
         "zt_mont_mul": [i, p, p, p, l, p],
-        "zt_butterfly": [i, p, p, p, p, p, l, p],
+        "zt_ntt_pass": [p, p, p, p, p, p, p, p, p, l, i, i, i, i, p],
         "zt_runscan": [i, i, p, p, p, p, i, i, l, p],
         "zt_bucket_merge": [i, p, l, p, i, i, p, p],
         "zt_bucket_tree": [i, p, i, p, p],

@@ -1,11 +1,14 @@
 """Field kernels, each beside its plain version.
 
 - ``mont_mul(a, b, spec)``: elementwise Montgomery product of two (8, N)
-  word batches. CUDA kernel ``csrc/field_kernels.cu: mont_mul_kernel``;
-  replaces the TPU kernel ``pallas_field._mont_mul_call`` (mont_mul_pallas).
-- ``butterfly(a, b, tw, spec)``: one radix-2 DIT stage over m pairs,
-  (a, b, w) -> (a + w*b, a - w*b). CUDA kernel ``butterfly_kernel``;
-  replaces ``pallas_field.butterfly_call``.
+  word batches (Poseidon's rounds). CUDA kernel
+  ``csrc/field_kernels.cu: mont_mul_kernel``; replaces the TPU kernel
+  ``pallas_field._mont_mul_call`` (mont_mul_pallas).
+- ``butterfly_plain(a, b, tw, spec)``: one radix-2 DIT stage over m
+  pairs, (a, b, w) -> (a + w*b, a - w*b), in plain torch: the stage of
+  ``ntt.ntt_pass_plain``. On the card the stages run inside the NTT pass
+  kernel (``ops/ntt.py``, ``csrc/ntt_kernels.cu``), which replaces
+  ``pallas_field.butterfly_call``.
 - ``mimc_permute(x, rc, spec)``: the MiMC permutation with key 0,
   x <- (x + c_r)^7 for each row c_r of the (R, 8) round constants, BN254 Fr
   only. CUDA kernel ``mimc_permute_kernel``; replaces
@@ -70,22 +73,6 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
                 b.data_ptr(), out.data_ptr(), n, device=dev)
     cuda.LAUNCHES["mont_mul"] += 1
     return out
-
-
-def butterfly(a: torch.Tensor, b: torch.Tensor, tw: torch.Tensor,
-              spec: L.FieldSpec):
-    """(even, odd) = (a + tw*b, a - tw*b) mod p; all (8, m) int32 words."""
-    if all(t.device.type == "cpu" for t in (a, b, tw)):
-        return butterfly_plain(a, b, tw, spec)
-    m = a.shape[1]
-    dev = cuda.check([a, b, tw], [(L.NWORDS, m)] * 3, "butterfly")
-    even = torch.empty_like(a)
-    odd = torch.empty_like(a)
-    cuda.launch("field_kernels", "zt_butterfly", _field_id(spec),
-                a.data_ptr(), b.data_ptr(), tw.data_ptr(), even.data_ptr(),
-                odd.data_ptr(), m, device=dev)
-    cuda.LAUNCHES["butterfly"] += 1
-    return even, odd
 
 
 # ---------------------------------------------------------------------------
