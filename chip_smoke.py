@@ -63,7 +63,23 @@ Phases (any failure exits non-zero and prints no result):
      lanes, 1,024 level-2 lanes) and at the chosen ones beside their bound,
      and the chosen level-1 pass and bucket tail against their plain
      versions on the card;
-  6. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
+  6. `engines`: jac_add and jac_double (ops/curve_ops.py) against their
+     plain versions on the card over 2^16 random points with every mask
+     case of point_add seeded in, jac_add at the scan's 2^20 lanes and
+     jac_double at the Horner step, timed beside their bounds; the tape
+     MSM (ops/msm_fast.py) and the Jacobian MSM (ops/msm.py) on the edge
+     inputs of tests/test_msm.py and at 2^16 points (one chunk segment),
+     G1 and G2, equal to the closed form and to msm_scan; the step
+     launches of each tape, split mixed / general, equal to its step
+     counts, the point kernels' launches of each Jacobian MSM; each MSM
+     under torch.profiler with no device kernel but its own and the
+     listed torch copies, gathers and selects; times by CUDA events and
+     device time beside their bounds, and a tape step's at S = 8,192;
+  `services`: Groth16Prover.prove of the L2 dummy batch (batch 1)
+     byte-equal to zelana_tpu_torch/testdata/l2_batch_proof.json and
+     verified; OwnershipProver (seed-0 keygen, then the proof) equal to
+     testdata/ownership_proof.json and verified;
+  7. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
      production key (1,129,391 variables, 2^21 domain) with the step
      kernel (one launch per chunk and curve), then prove_chunks proves a
      batch that fills two chunks; both proofs pass verify_chunk and their
@@ -72,9 +88,10 @@ Phases (any failure exits non-zero and prints no result):
      one chunk prove under torch.profiler with the torch copy and gather
      kernels left on its device, the peak device memory, and R, R2 and K2
      of the chunk's z schedules;
-  7. one JSON line of per-kernel numbers (launches: the prover's kernels
-     on the L2 slice, step on the production keygen, mimc_permute and
-     mont_mul (Poseidon's rounds) on the hashes, inv_fwd / inv_bwd /
+  8. one JSON line of per-kernel numbers (launches: the prover's kernels
+     on the L2 slice, step on the production keygen and, apart, on the
+     tape MSMs, jac_add / jac_double on the Jacobian MSMs, mimc_permute
+     and mont_mul (Poseidon's rounds) on the hashes, inv_fwd / inv_bwd /
      inv_base on the inversions), the card, the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -100,7 +117,7 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "production")
+          "engines", "services", "production")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -167,6 +184,15 @@ def main() -> int:
         phase_keygen(report)
     if "chunk" in phases:
         phase_chunk(torch, dev, report)
+    tape = {}
+    if "engines" in phases:
+        entries, eng_launches, tape_runs, step_times = phase_engines(
+            torch, dev, report)
+        kernels += entries
+        launches.update(eng_launches)
+        tape = {"tape_launches": tape_runs, "tape_steps": step_times}
+    if "services" in phases:
+        phase_services(torch, dev, report)
     if "production" in phases:
         # step's launches come from the production keygen
         launches["step"] = phase_production(torch, report)["step"]
@@ -181,6 +207,8 @@ def main() -> int:
     out = []
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "step":  # and its launches on the tape MSMs
+            k.update(tape)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
@@ -1459,7 +1487,6 @@ def phase_keygen(report) -> None:
 def phase_chunk(torch, dev, report) -> None:
     import numpy as np
 
-    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
     from zelana_tpu_torch.fields.bn254 import R as FR
     from zelana_tpu_torch.groth16.prove import witness_map
     from zelana_tpu_torch.ops import msm_scan as MSM
@@ -1495,20 +1522,9 @@ def phase_chunk(torch, dev, report) -> None:
 
     # MSMs at chunk size: pools tile P_j = (j+1) G, j < 4096, so the answer
     # is (sum_i s_i * ((i mod 4096) + 1) mod r) G
-    tile = 4096
     for curve, n in (("g1", CHUNK_CONSTRAINTS), ("g1", CHUNK_DOMAIN - 1),
                      ("g2", CHUNK_CONSTRAINTS)):
-        G = G1 if curve == "g1" else G2
-        gen = G.generator()
-        pts, acc = [], gen
-        for _ in range(tile):
-            pts.append(acc)
-            acc = G.add(acc, gen)
-        prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(pts, dev)
-        pool = prep[0].repeat(1, -(-n // tile))[:, :n].contiguous()
-        limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
-        limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
-        want = G.mul(gen, _tiled_scalar(limbs, tile) % FR)
+        pool, limbs, want = tiled_msm(torch, curve, n, rng, dev)
         t0 = time.time()
         digits = MSM.scalar_digits(limbs)
         segs = MSM.build_segment_schedules(digits)
@@ -1673,6 +1689,43 @@ def _segment_kernels(torch, pool, d, curve, report, tag) -> None:
     log(f"  segment {curve} less its two scans, {tag}: {rest:.4f} ms")
 
 
+MSM_TILE = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_points(curve: str) -> list:
+    """P_j = (j + 1) G for j < MSM_TILE."""
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+
+    G = G1 if curve == "g1" else G2
+    gen = G.generator()
+    pts, acc = [], gen
+    for _ in range(MSM_TILE):
+        pts.append(acc)
+        acc = G.add(acc, gen)
+    return pts
+
+
+def tiled_msm(torch, curve: str, n: int, rng, dev):
+    """An MSM with a closed-form answer: (pool, scalar limbs, result). The
+    (VC, n) pool tiles P_j = (j + 1) G, j < MSM_TILE, so the answer is
+    (sum_i s_i ((i mod MSM_TILE) + 1) mod r) G; scalars below 2^253."""
+    import numpy as np
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    G = G1 if curve == "g1" else G2
+    prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(
+        _tile_points(curve), dev)
+    pool = prep[0].repeat(1, -(-n // MSM_TILE))[:, :n].contiguous()
+    limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+    limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
+    want = G.mul(G.generator(), _tiled_scalar(limbs, MSM_TILE) % FR)
+    return pool, limbs, want
+
+
 def _tiled_scalar(limbs, tile: int) -> int:
     """sum_i s_i * ((i mod tile) + 1) for (n, 4) uint64 limbs, exactly:
     per residue class, the 32-bit halves of each limb are summed in uint64
@@ -1692,6 +1745,429 @@ def _tiled_scalar(limbs, tile: int) -> int:
                 for k in range(4))
         total += s * (j + 1)
     return total
+
+
+# ---------------------------------------------------------------------------
+# `engines`: the tape MSM and the Jacobian windowed MSM at one chunk
+# segment's width; `services`: the prover's service entry points
+# ---------------------------------------------------------------------------
+
+# Montgomery products of one point op as the kernels run it on general
+# inputs: a Jacobian add (add-2007-bl) 16 Fq or 16 Fq2 (3 Fq each), a
+# doubling 7; a tape step's mixed add 9 Fq / 10 Fq2 (mul_b3 of G2 one Fq2
+# product), its complete add 12 / 14 (RUNSCAN_MULS)
+JAC_ADD_FQ = {"g1": 16, "g2": 48}
+JAC_DBL_FQ = {"g1": 7, "g2": 21}
+STEP_FQ = {("g1", True): 9, ("g1", False): 12, ("g2", True): 30,
+           ("g2", False): 42}
+JAC_CHECK_N = 1 << 16  # points of the mask-case checks
+JAC_SCAN_LANES = 1 << 20  # lanes of a scan step at 2^16 points
+# device kernels each MSM may run beside its own: copies and fills of the
+# pool, the uploads and the finals' gather (tape); gathers, rolls, selects,
+# the bucket scatter and a concatenation (Jacobian)
+TAPE_KERNELS = ("step_kernel", "Memcpy", "Memset", "copy", "Fill", "index",
+                "scatter_gather")
+JAC_KERNELS = ("jac_add_kernel", "jac_double_kernel", "Memcpy", "Memset",
+               "copy", "Fill", "index", "scatter_gather", "roll", "where",
+               "CatArray")
+
+
+def _only_kernels(events, allowed, what: str) -> None:
+    names = {e.key: e.count for e in events}
+    log(f"  {what}: device kernels {names}")
+    bad = [k for k in names if not any(a in k for a in allowed)]
+    if bad:
+        raise AssertionError(f"{what} ran device kernels outside "
+                             f"{allowed}: {bad}")
+
+
+def _tape_work(tape, curve: str):
+    """(bytes, int32 operations, mixed pairs, general pairs) of a tape
+    MSM's device part: the affine points read once, the tape's ids, the 256
+    sums written; the adds of its real pairs (padding pairs read slot 0
+    twice)."""
+    C, n = (24 if curve == "g1" else 48), tape.n_points
+    real = tape.idx[:, 0] != 0  # (steps, S)
+    mixed = int(real[:tape.mixed_steps].sum())
+    general = int(real[tape.mixed_steps:].sum())
+    nbytes = 4 * (2 * C // 3 * n + tape.idx.size + C * 256)
+    ops = (mixed * STEP_FQ[(curve, True)]
+           + general * STEP_FQ[(curve, False)]) * MUL_OPS
+    return nbytes, ops, mixed, general
+
+
+def _jac_msm_work(digits, curve: str):
+    """(bytes, int32 operations) of a Jacobian MSM: the affine points read
+    once, the sort order, the result written; the scan's adds whose result
+    is kept, 510 bucket adds a window, the Horner's 31 adds and 248
+    doublings."""
+    import math
+
+    import numpy as np
+
+    from zelana_tpu_torch.ops import msm as JM
+
+    C = 24 if curve == "g1" else 48
+    w, n = digits.shape
+    keys = np.sort(digits, axis=1)
+    starts = np.concatenate([np.ones((w, 1), bool),
+                             keys[:, 1:] != keys[:, :-1]], axis=1)
+    adds = int((~JM._scan_keeps(starts, math.ceil(math.log2(n)))).sum())
+    adds += 2 * (JM.N_BUCKETS - 1) * w + (w - 1)
+    dbls = JM.WINDOW_BITS * (w - 1)
+    nbytes = 4 * (2 * C // 3 * n + w * n * 2 + C)
+    ops = (adds * JAC_ADD_FQ[curve] + dbls * JAC_DBL_FQ[curve]) * MUL_OPS
+    return nbytes, ops
+
+
+def _jac_kernel_checks(torch, dev, rng, check, report) -> dict:
+    """jac_add and jac_double against their plain versions on the card:
+    JAC_CHECK_N random points with point_add's mask cases seeded in (count
+    1, and count 8 with an addend); jac_add at the scan's JAC_SCAN_LANES
+    lanes (general points, against the plain version block by block) and
+    at a bucket step's 16 windows, jac_double at the Horner step's one
+    point. Times beside their bounds (the general formula's products): at
+    2^20 lanes by CUDA events, the one-point step by device time (its
+    launch takes longer on the host than on the card). Returns the kernel
+    entries' numbers, G1 + G2."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import curve_ops as CO
+    from zelana_tpu_torch.ops import limbs as L
+
+    out = {k: {"err": 0, "ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+           for k in ("jac_add", "jac_double")}
+    n, big = JAC_CHECK_N, JAC_SCAN_LANES
+    for curve in ("g1", "g2"):
+        C = CK.rows(curve)
+        rep = report.setdefault(curve, {})
+
+        def words(k):
+            return torch.cat([rand_words(torch, rng, L.FQ.modulus >> 224, k,
+                                         dev) for _ in range(C // 8)])
+
+        p, q = CO.seed_mask_cases(words(n), words(n), words(n)[:C // 3],
+                                  curve)
+        a, d = out["jac_add"], out["jac_double"]
+        a["err"] = max(a["err"], check(
+            f"jac_add {curve} {n}, every mask case", CO.jac_add(p, q, curve),
+            CO.jac_add_plain(p, q, curve)))
+        d["err"] = max(d["err"], check(
+            f"jac_double {curve} {n}, every mask case",
+            CO.jac_double(p, curve), CO.jac_double_plain(p, curve)))
+        d["err"] = max(d["err"], check(
+            f"jac_double {curve} {n}, 8 doublings and an add, every mask "
+            f"case", CO.jac_double(p, curve, 8, q),
+            CO.jac_double_plain(p, curve, 8, q)))
+        # the scan step's shape: 16 windows x 2^16 lanes of general points,
+        # against the plain version block by block
+        P, Q = words(big), words(big)
+        got = CO.jac_add(P, Q, curve)
+        t0 = time.time()
+        for b in range(0, big, n):
+            a["err"] = max(a["err"], check(
+                f"jac_add {curve} {big} block {b // n}", got[:, b:b + n],
+                CO.jac_add_plain(P[:, b:b + n], Q[:, b:b + n], curve)))
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.time() - t0)
+        ms = cuda_ms(torch, lambda: CO.jac_add(P, Q, curve), 5)
+        work = (3 * C * 4 * big, big * JAC_ADD_FQ[curve] * MUL_OPS)
+        rep["jac_add_2_20"] = {"ms": ms, "plain_ms": plain,
+                               "bound_ms": bound_ms(*work)[0]}
+        for k, v in zip(("ms", "plain", "bytes", "ops"), (ms, plain) + work):
+            a[k] += v
+        # a bucket step's 16 windows, and the Horner step's one point
+        bq = words(16)
+        rep["jac_add_16_device_ms"] = device_ms(
+            torch, lambda: CO.jac_add(bq, bq.flip(1).contiguous(), curve),
+            20, 1)
+        one, add1 = words(1), words(1)
+        d["err"] = max(d["err"], check(
+            f"jac_double {curve} Horner step (1 point, 8 doublings, an add)",
+            CO.jac_double(one, curve, 8, add1),
+            CO.jac_double_plain(one, curve, 8, add1)))
+        ms = device_ms(torch, lambda: CO.jac_double(one, curve, 8, add1),
+                       20, 1)
+        plain = cuda_ms(torch, lambda: CO.jac_double_plain(
+            one, curve, 8, add1), 1, False)
+        work = (3 * C * 4, (8 * JAC_DBL_FQ[curve] + JAC_ADD_FQ[curve])
+                * MUL_OPS)
+        rep["jac_double_horner"] = {"device_ms": ms, "plain_ms": plain,
+                                    "bound_ms": bound_ms(*work)[0]}
+        for k, v in zip(("ms", "plain", "bytes", "ops"), (ms, plain) + work):
+            d[k] += v
+        log(f"  {curve}: {json.dumps(rep)}")
+        del P, Q, got
+    for name, e in out.items():
+        e["bound_ms"], e["bound_by"] = bound_ms(e["bytes"], e["ops"])
+        log(f"  {name} (G1 + G2; jac_add at 2^20 lanes, jac_double at the "
+            f"Horner step): {e['ms']:.4f} ms kernel, {e['plain']:.1f} ms "
+            f"plain, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+            f"{e['bound_ms'] / e['ms']:.1%} of it")
+    return out
+
+
+def _edge_msms(torch, dev) -> None:
+    """tests/test_msm.py:100-131's inputs on the card: a zero scalar, an
+    identity point and P + (-P) (G1, 24 points), four G2 points; both MSMs
+    against the host MSM."""
+    import random
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import msm as JM
+    from zelana_tpu_torch.ops import msm_fast as MF
+
+    rng = random.Random(99)
+    g = G1.generator()
+    pts = [G1.mul(g, rng.randrange(1, FR)) for _ in range(24)]
+    sc = [rng.randrange(FR) for _ in range(24)]
+    sc[3] = 0
+    pts[5] = None
+    pts[10] = G1.neg(pts[9])
+    sc[10] = sc[9]
+    pts2 = [G2.mul(G2.generator(), rng.randrange(1, 10**5))
+            for _ in range(4)]
+    sc2 = [rng.randrange(FR) for _ in range(4)]
+    for G, P, S, fns in ((G1, pts, sc, (MF.msm_g1, JM.msm_g1)),
+                         (G2, pts2, sc2, (MF.msm_g2, JM.msm_g2))):
+        want = G.msm([p for p in P if p is not None],
+                     [s for p, s in zip(P, S) if p is not None])
+        for fn in fns:
+            if fn(P, S, device=dev) != want:
+                raise AssertionError(f"{fn.__module__}.{fn.__name__} differs "
+                                     f"from the host MSM on the edge inputs")
+    log("  edge inputs (zero scalar, identity point, P + (-P); four G2 "
+        "points): tape and Jacobian MSMs equal the host MSMs")
+
+
+def phase_engines(torch, dev, report):
+    """The tape MSM (msm_fast, the step kernel's mixed and general adds) and
+    the Jacobian windowed MSM (msm, jac_add / jac_double) at CHUNK_N =
+    2^16 points, G1 and G2, on tiled_msm's pools: both equal to the closed
+    form and to msm_scan; the step launches split mixed / general equal to
+    the tape's step counts; the point kernels' launches; each MSM under the
+    profiler with only its own kernels and the listed torch copies,
+    gathers and selects on the device. Returns (kernel entries, launches of
+    the MSM runs)."""
+    import numpy as np
+
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import msm as JM
+    from zelana_tpu_torch.ops import msm_fast as MF
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    rng = np.random.default_rng(33)
+    rep = report.setdefault("engines", {})
+    mismatches = {}
+
+    def check(name, got, want):
+        mism, err = compare(torch, got, want)
+        if mism:
+            log(f"  {name}: mismatches {mism}, max |diff| {err}")
+        mismatches[name.split()[0]] = mismatches.get(name.split()[0],
+                                                     0) + mism
+        return err
+
+    jac = _jac_kernel_checks(torch, dev, rng, check,
+                             rep.setdefault("point_kernels", {}))
+    log(f"  jac kernels against their plain versions: mismatches "
+        f"{mismatches}")
+    if any(mismatches.values()):
+        raise AssertionError(f"jac kernels differ from their plain "
+                             f"versions: {mismatches}")
+    _edge_msms(torch, dev)
+
+    n = MSM.CHUNK_N
+    launches = {"jac_add": 0, "jac_double": 0}
+    tape_runs = {"mixed": 0, "general": 0}
+    step_times = {}
+    step = CK.step
+    for curve in ("g1", "g2"):
+        pool, limbs, want = tiled_msm(torch, curve, n, rng, dev)
+        digits = MSM.scalar_digits(limbs)
+        prepared = (pool, np.zeros(n, bool), curve)
+        got_scan = MSM.msm_end(MSM.msm_begin_scheds(
+            prepared, MSM.build_segment_schedules(digits)))
+
+        # the tape MSM, its step launches split by kind
+        tape = MF.build_tape(digits)
+        kinds = []
+
+        def counting_step(*args, **kw):
+            kinds.append(kw["mixed"])
+            return step(*args, **kw)
+
+        CK.step = counting_step
+        try:
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got_tape = MF.msm_end(MF.msm_begin(prepared, None, curve,
+                                               digits=digits))
+            t_tape = 1e3 * (time.time() - t0)
+            step_launches = cuda.LAUNCHES["step"]
+        finally:
+            CK.step = step
+        steps = tape.idx.shape[0]
+        mixed = sum(kinds)
+        if (step_launches, mixed, len(kinds) - mixed) != (
+                steps, tape.mixed_steps, steps - tape.mixed_steps):
+            raise AssertionError(
+                f"tape {curve}: {step_launches} step launches ({mixed} mixed)"
+                f", the tape has {steps} steps ({tape.mixed_steps} mixed)")
+        tape_runs["mixed"] += mixed
+        tape_runs["general"] += steps - mixed
+
+        # the Jacobian MSM and its point kernels' launches
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got_jac = JM._jac_to_affine_host(JM._msm(pool, digits, curve), curve)
+        t_jac = 1e3 * (time.time() - t0)
+        chunks = -(-JM.N_WINDOWS // JM._window_chunk(n))
+        per = {"jac_add": chunks * ((n - 1).bit_length()
+                                    + 2 * (JM.N_BUCKETS - 1)),
+               "jac_double": JM.N_WINDOWS - 1}
+        for k, v in per.items():
+            if cuda.LAUNCHES[k] != v:
+                raise AssertionError(f"Jacobian MSM {curve}: {k} launched "
+                                     f"{cuda.LAUNCHES[k]} times, expected "
+                                     f"{v}")
+            launches[k] += v
+        if not got_tape == got_jac == got_scan == want:
+            raise AssertionError(f"{curve} at 2^16: tape, Jacobian and "
+                                 f"run-scan MSMs and the closed form differ")
+
+        # times: the device part by CUDA events and by device time, beside
+        # its bound; the tape's steps one by one at S
+        tape_ms = cuda_ms(torch, lambda: MF.run_tape(pool, tape, curve), 3)
+        tape_dev, _, events = device_profile(torch, lambda: MF.run_tape(
+            pool, tape, curve), 2, steps)
+        _only_kernels(events, TAPE_KERNELS, f"tape MSM {curve}")
+        tb, tops, real_m, real_g = _tape_work(tape, curve)
+        tape_bound = bound_ms(tb, tops)
+        jac_ms = cuda_ms(torch, lambda: JM._msm(pool, digits, curve), 2)
+        jac_dev, _, events = device_profile(torch, lambda: JM._msm(
+            pool, digits, curve), 2, sum(per.values()))
+        _only_kernels(events, JAC_KERNELS, f"Jacobian MSM {curve}")
+        jac_bound = bound_ms(*_jac_msm_work(digits, curve))
+        tp = MF._pool(pool, tape, curve)
+        idx, _finals = MF._upload_tape(tape, dev)
+        S, a0 = tape.S, tape.a0
+        for t in range(steps):
+            step(tp, a0 + t * S, S, curve, idx[t, 0], idx[t, 1],
+                 read_hi=a0 + t * S, mixed=t < tape.mixed_steps)
+        for kind, t in (("mixed", 0), ("general", tape.mixed_steps)):
+            is_mixed = kind == "mixed"
+            ms = device_ms(torch, lambda: step(
+                tp, a0 + t * S, S, curve, idx[t, 0], idx[t, 1],
+                read_hi=a0 + t * S, mixed=is_mixed), 20, 1)
+            rows = CK.rows(curve) * (2 if is_mixed else 3) // 3
+            real = int((tape.idx[t, 0] != 0).sum())
+            sb = bound_ms(4 * (2 * S * rows + S * CK.rows(curve) + 2 * S),
+                          real * STEP_FQ[(curve, is_mixed)] * MUL_OPS)
+            step_times[f"{curve} {kind}"] = {"device_ms": ms,
+                                             "bound_ms": sb[0],
+                                             "bound_by": sb[1],
+                                             "pairs": real, "S": S}
+        del tp, idx
+        rep[curve] = {
+            "tape": {"steps": steps, "mixed_steps": tape.mixed_steps,
+                     "real_pairs": [real_m, real_g], "S": S,
+                     "msm_wall_ms": t_tape, "device_events_ms": tape_ms,
+                     "device_ms": tape_dev, "bound_ms": tape_bound[0],
+                     "bound_by": tape_bound[1]},
+            "jacobian": {"launches": per, "msm_wall_ms": t_jac,
+                         "device_events_ms": jac_ms, "device_ms": jac_dev,
+                         "bound_ms": jac_bound[0],
+                         "bound_by": jac_bound[1]},
+            "steps": {k: v for k, v in step_times.items()
+                      if k.startswith(curve)}}
+        log(f"engines {curve} {n} points: closed form = run-scan = tape = "
+            f"Jacobian; {json.dumps(rep[curve])}")
+        del pool, prepared
+    entries = []
+    # no Pallas kernel stands behind them: "replaces" names the JAX
+    # package's XLA function
+    for name, line in (("jac_add", 168), ("jac_double", 151)):
+        e = jac[name]
+        entries.append(_entry(name, "zelana_tpu_torch/csrc/jac_kernels.cu",
+                              f"zelana_tpu/ops/curve_ops.py:{line}",
+                              e["err"], e["ms"], e["plain"], e["bound_ms"],
+                              e["bound_by"]))
+        entries[-1]["mismatches"] = mismatches[name]
+    rep["tape_launches"] = tape_runs
+    rep["step_times"] = step_times
+    log(f"engines: point kernel launches {launches}, step launches of the "
+        f"tape MSMs {tape_runs}")
+    return entries, launches, tape_runs, step_times
+
+
+def phase_services(torch, dev, report) -> dict:
+    """The prover's service entry points on the card: Groth16Prover.prove
+    of the L2 dummy batch (batch 1, artifacts/l2_dummy_pk.npz) byte-equal
+    to zelana_tpu_torch/testdata/l2_batch_proof.json and verified;
+    OwnershipProver's seed-0 keygen and proof of the recorded witness
+    equal to testdata/ownership_proof.json and verified. Returns the
+    prover kernels' launches of the two proofs."""
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.runtime.ownership_api import OwnershipProver
+    from zelana_tpu_torch.sequencer import prover_service as SP
+    from zelana_tpu_torch.sequencer import transactions as TX
+
+    rep = report.setdefault("services", {})
+    with open("zelana_tpu_torch/testdata/l2_batch_proof.json") as f:
+        vec = json.load(f)
+    with open("zelana_tpu_torch/testdata/ownership_proof.json") as f:
+        own_vec = json.load(f)
+    cuda.reset_launches()
+    prover = SP.Groth16Prover(ProvingKey.load_npz(vec["key"]))
+    inputs = SP.BatchPublicInputs(**{
+        k: bytes.fromhex(v) if isinstance(v, str) else v
+        for k, v in vec["inputs"].items()})
+    witness = SP.BatchWitness(
+        transactions=[TX.Transfer(bytes.fromhex(a), bytes.fromhex(b), amount,
+                                  nonce)
+                      for a, b, amount, nonce in vec["transfers"]],
+        initial_accounts={bytes.fromhex(pk): balance
+                          for pk, balance in vec["initial_accounts"]})
+    torch.cuda.synchronize()
+    t0 = time.time()
+    proof = prover.prove(inputs, witness)
+    t1 = time.time()
+    if proof.proof_bytes.hex() != vec["proof_bytes"]:
+        raise AssertionError("Groth16Prover: the batch 1 proof differs from "
+                             "the recorded JAX vector")
+    if not prover.verify(proof):
+        raise AssertionError("Groth16Prover: the proof does not verify")
+    own = OwnershipProver()
+    t2 = time.time()
+    res = own.prove(*own_vec["witness"])
+    t3 = time.time()
+    for key in ("proof", "public_inputs", "public_witness"):
+        if res[key] != own_vec[key]:
+            raise AssertionError(f"OwnershipProver: {key} differs from the "
+                                 f"recorded JAX vector")
+    if not own.verify(bytes.fromhex(res["proof"]),
+                      [int(v) for v in res["public_inputs"]]):
+        raise AssertionError("OwnershipProver: the proof does not verify")
+    launches = {k: cuda.LAUNCHES[k] for k in ("ntt_pass", "runscan",
+                                              "bucket_tail", "step")}
+    if not all(launches.values()):
+        raise AssertionError(f"services: a prover kernel was not launched: "
+                             f"{launches}")
+    rep.update(groth16_prove_ms=1e3 * (t1 - t0),
+               ownership_keygen_and_prove_ms=1e3 * (t3 - t2),
+               ownership_prove_ms=res["proving_time_ms"], launches=launches)
+    log(f"services: Groth16Prover batch 1 {rep['groth16_prove_ms']:.1f} ms "
+        f"(first prove: key upload and NTT plan included), byte-equal and "
+        f"verified; OwnershipProver keygen + prove "
+        f"{rep['ownership_keygen_and_prove_ms']:.1f} ms (prove "
+        f"{res['proving_time_ms']} ms), equal and verified; launches "
+        f"{launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------

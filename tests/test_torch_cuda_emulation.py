@@ -9,7 +9,9 @@ safegcd base inverse over the three fields, inv_fwd in both of its thread
 mappings (a thread a chain behind a cp.async ring; a prefix scan over a
 thread per element), inv_bwd in both of its (two threads a chain behind a
 cp.async ring; a suffix scan), both on inputs with zeros, and the NTT pass
-kernel (ntt_kernels.cu) pass by pass in every kind of transform. This holds
+kernel (ntt_kernels.cu) pass by pass in every kind of transform, and the
+Jacobian point kernels (jac_kernels.cu) on every case of point_add's mask
+dispatch. This holds
 the kernels' indexing, their barriers and their shared memory before a
 card sees them; the card runs the same comparison in chip_smoke.py. Equality is exact."""
 
@@ -24,6 +26,7 @@ import torch
 
 from zelana_tpu_torch.fields.bn254 import P
 from zelana_tpu_torch.ops import curve_kernels as CK
+from zelana_tpu_torch.ops import curve_ops as CO
 from zelana_tpu_torch.ops import cuda
 from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as L
@@ -96,6 +99,11 @@ def nlib():
     return _build("ntt_kernels", 1)
 
 
+@pytest.fixture(scope="module")
+def jlib():
+    return _build("jac_kernels", 4)
+
+
 def _rand_words(rng, C: int, n: int) -> torch.Tensor:
     """(C, n) words of random canonical Fq elements (the adds are
     straight-line formulas: any field elements compare word for word)."""
@@ -147,6 +155,34 @@ def test_emulated_bucket_tail_matches_plain(lib, curve, K):
     assert lib.zt_bucket_tree(cid, merged.data_ptr(), nb, out.data_ptr(),
                               None) == 0
     assert torch.equal(out, CK.bucket_tail_plain(emit2, dense, K, curve))
+
+
+@pytest.mark.parametrize("curve,count,addend", [
+    ("g1", 0, True), ("g1", 3, True), ("g1", 2, False),
+    ("g2", 0, True), ("g2", 2, True), ("g2", 1, False)])
+def test_emulated_jac_kernels_match_plain(jlib, curve, count, addend):
+    """jac_add (count 0) and jac_double (count doublings, then the addend
+    or none) over 136 points: the eight mask cases of point_add
+    (curve_ops.MASK_CASES) seeded in, 17 each, a partial second block of
+    128 threads; p read through a row stride wider than its columns."""
+    rng = np.random.default_rng(101 + count + 8 * (curve == "g2"))
+    C, n = CK.rows(curve), 136
+    p, q = CO.seed_mask_cases(_rand_words(rng, C, n), _rand_words(rng, C, n),
+                              _rand_words(rng, C, n)[:C // 3], curve)
+    wide = torch.zeros((C, n + 40), dtype=torch.int32)
+    wide[:, :n] = p
+    got = torch.empty((C, n), dtype=torch.int32)
+    cid = 0 if curve == "g1" else 1
+    if count == 0:
+        assert jlib.zt_jac_add(cid, wide.data_ptr(), n + 40, q.data_ptr(), n,
+                               got.data_ptr(), n, None) == 0
+        want = CO.jac_add_plain(p, q, curve)
+    else:
+        assert jlib.zt_jac_double(
+            cid, wide.data_ptr(), n + 40, q.data_ptr() if addend else None,
+            n, got.data_ptr(), n, count, None) == 0
+        want = CO.jac_double_plain(p, curve, count, q if addend else None)
+    assert torch.equal(got, want)
 
 
 FIELDS = {"Fq": L.FQ, "Fr": L.FR, "BLS12-381 Fr": L.BLS_FR}

@@ -47,6 +47,16 @@ system = __import__("zelana_tpu_torch.r1cs.native_synth", fromlist=["x"]
                     ).synthesize_chunk(Groth16ChunkProver.dummy_circuit(
                         (0, 0, 0), 1))
 assert system.check() == -1
+
+# the MSMs over the tape and Jacobian kernels, the prover services
+from zelana_tpu_torch.circuits import ownership
+from zelana_tpu_torch.ops import curve_ops, msm, msm_fast, tape_native
+from zelana_tpu_torch.runtime import ownership_api
+from zelana_tpu_torch.sequencer import prover_service, transactions
+
+from zelana_tpu_torch.curves import g1
+
+assert msm_fast.msm_g1([(1, 2)], [5], device="cpu") == g1.mul((1, 2), 5)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or (m.startswith("zelana_tpu") and
@@ -110,7 +120,7 @@ def test_default_device_raises_without_cuda(cubic_key):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         msm_scan.msm_g1([(1, 2)], [5])
 
-    from zelana_tpu_torch.curves import g1
+    from zelana_tpu_torch.curves import g1, g2
     from zelana_tpu_torch.groth16.prove import prove_synthesized
     from zelana_tpu_torch.groth16.setup import keygen, keygen_synthesized
     from zelana_tpu_torch.ops import fixed_base
@@ -118,6 +128,9 @@ def test_default_device_raises_without_cuda(cubic_key):
 
     from zelana_tpu_torch.hashes import mimc_batch, poseidon_batch
     from zelana_tpu_torch.hashes.poseidon import bn254_config
+    from zelana_tpu_torch.ops import msm, msm_fast
+    from zelana_tpu_torch.runtime.ownership_api import OwnershipProver
+    from zelana_tpu_torch.sequencer.prover_service import Groth16Prover
 
     for call in (lambda: keygen(object()),
                  lambda: keygen_synthesized(object()),
@@ -126,6 +139,10 @@ def test_default_device_raises_without_cuda(cubic_key):
                  lambda: Groth16ChunkProver(pk, (1, 0, 1), 1),
                  lambda: Groth16ChunkProver.setup((0, 0, 0), 1),
                  lambda: mimc_batch.hash2_many([(1, 2)]),
-                 lambda: poseidon_batch.hash_many(bn254_config(), [(1, 2)])):
+                 lambda: poseidon_batch.hash_many(bn254_config(), [(1, 2)]),
+                 lambda: msm.msm_g2([g2.generator()], [5]),
+                 lambda: msm_fast.msm_g1([(1, 2)], [5]),
+                 lambda: Groth16Prover(pk),
+                 lambda: OwnershipProver()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -1,0 +1,111 @@
+"""Record the prover services' test vectors with the JAX package on the CPU.
+
+    JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
+
+- ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
+  ``sequencer.prover_service.Groth16Prover`` with
+  ``artifacts/l2_dummy_pk.npz`` proves the batch that
+  ``L2BlockCircuit.dummy()`` describes (accounts 0x01.. = 1000 and
+  0x02.. = 0, one transfer of 100) as batch 1, its roots the circuit's own
+  folds for batch_id 1; the batch's public inputs and witness, the 256
+  proof bytes and the circuit's public input values.
+- ``zelana_tpu_torch/testdata/ownership_proof.json``: the JAX
+  ``runtime.ownership_api.OwnershipProver().prove(12345, 777, 999, 5)``
+  (seed-0 keygen of the ownership circuit, then the proof); every field of
+  its answer but the proving time.
+
+The port is held against these files by tests/test_torch_prover_service.py
+(on the CPU) and by chip_smoke.py's ``services`` phase (on the card).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+TESTDATA = os.path.join(ROOT, "zelana_tpu_torch", "testdata")
+CMD = "JAX_PLATFORMS=cpu python tools/record_service_vectors.py"
+
+L2_BATCH_ID = 1
+OWNERSHIP_WITNESS = (12345, 777, 999, 5)
+
+
+def dummy_batch(block, sp, tx, batch_id: int):
+    """(BatchPublicInputs, BatchWitness) of the L2 dummy batch, built from
+    the modules given (the JAX package's or the port's)."""
+    c = block.L2BlockCircuit.dummy()
+    t = c.transactions[0]
+    final = block.apply_transfers(c.initial_accounts, c.transactions)
+    zero = b"\x00" * 32
+    inputs = sp.BatchPublicInputs(
+        pre_state_root=block.compute_state_root(batch_id, c.initial_accounts),
+        post_state_root=block.compute_state_root(batch_id, final),
+        pre_shielded_root=zero, post_shielded_root=zero,
+        withdrawal_root=block.compute_withdrawal_root([]),
+        batch_hash=block.compute_batch_hash(batch_id, c.transactions),
+        batch_id=batch_id)
+    witness = sp.BatchWitness(
+        transactions=[tx.Transfer(t.sender_pk, t.recipient_pk, t.amount, 0)],
+        initial_accounts=dict(c.initial_accounts))
+    return inputs, witness
+
+
+def record_l2() -> None:
+    from zelana_tpu.circuits import l2_block
+    from zelana_tpu.groth16.keys import ProvingKey
+    from zelana_tpu.sequencer import prover_service as sp
+    from zelana_tpu.sequencer import transactions as tx
+
+    pk = ProvingKey.load_npz(os.path.join(ROOT, "artifacts",
+                                          "l2_dummy_pk.npz"))
+    prover = sp.Groth16Prover(pk)
+    inputs, witness = dummy_batch(l2_block, sp, tx, L2_BATCH_ID)
+    proof = prover.prove(inputs, witness)
+    assert prover.verify(proof)
+    out = {
+        "batch": "circuits/l2_block.py L2BlockCircuit.dummy() as a batch, "
+                 "roots folded for its batch_id",
+        "key": "artifacts/l2_dummy_pk.npz",
+        "batch_id": L2_BATCH_ID,
+        "inputs": {k: v.hex() if isinstance(v, bytes) else v
+                   for k, v in vars(inputs).items()},
+        "transfers": [[t.signer_pubkey.hex(), t.to.hex(), t.amount, t.nonce]
+                      for t in witness.transactions],
+        "initial_accounts": [[pk.hex(), bal] for pk, bal
+                             in witness.initial_accounts.items()],
+        "public_inputs": [str(v) for v in sp.public_input_values(inputs)],
+        "proof_bytes": proof.proof_bytes.hex(),
+        "recorded_with": f"{CMD} l2 (zelana_tpu.sequencer.prover_service."
+                         "Groth16Prover.prove)",
+    }
+    _write("l2_batch_proof.json", out)
+
+
+def record_ownership() -> None:
+    from zelana_tpu.runtime.ownership_api import OwnershipProver
+
+    res = OwnershipProver().prove(*OWNERSHIP_WITNESS)
+    res.pop("proving_time_ms")
+    out = {"witness": list(OWNERSHIP_WITNESS), **res,
+           "recorded_with": f"{CMD} ownership (zelana_tpu.runtime."
+                            "ownership_api.OwnershipProver().prove(12345, "
+                            "777, 999, 5))"}
+    _write("ownership_proof.json", out)
+
+
+def _write(name: str, obj: dict) -> None:
+    with open(os.path.join(TESTDATA, name), "w") as f:
+        json.dump(obj, f, indent=1)
+        f.write("\n")
+    print("wrote", name)
+
+
+if __name__ == "__main__":
+    which = sys.argv[1:] or ["l2", "ownership"]
+    if "l2" in which:
+        record_l2()
+    if "ownership" in which:
+        record_ownership()

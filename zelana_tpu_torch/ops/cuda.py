@@ -27,13 +27,13 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PKG)  # the repo checkout
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(ROOT, "build", "zelana_tpu_torch")
-SOURCES = ("field_kernels", "curve_kernels", "ntt_kernels")
+SOURCES = ("field_kernels", "curve_kernels", "ntt_kernels", "jac_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "runscan": 0, "bucket_tail": 0,
             "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
-            "inv_base": 0}
+            "inv_base": 0, "jac_add": 0, "jac_double": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -116,6 +116,8 @@ def _declare(cdll) -> None:
         "zt_inv_bwd": [i, p, p, p, p, l, i, p],
         "zt_inv_base": [i, p, p, l, p],
         "zt_inv_scan_below": [i],
+        "zt_jac_add": [i, p, l, p, l, p, l, p],
+        "zt_jac_double": [i, p, l, p, l, p, l, i, p],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

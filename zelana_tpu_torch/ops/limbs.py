@@ -185,57 +185,158 @@ def _p_col(modulus: int, device: torch.device, ndim: int) -> torch.Tensor:
         (NLIMBS,) + (1,) * (ndim - 1))
 
 
-def _carry_sweep(cols: torch.Tensor):
-    """Propagate carries so every limb is < 2^16; returns (limbs, carry)."""
-    out = torch.empty_like(cols)
+# A plain call's cost: for a narrow batch its fixed cost per torch op, for a
+# wide one the passes over its data. Below PARALLEL_MAX elements the
+# carries and the Montgomery reduction run limb-parallel (a few ops over
+# all limbs at once); from there on limb-serial (16 steps, each touching one
+# limb row). Both are exact, so they give the same canonical limbs.
+PARALLEL_MAX = 4096
+
+
+def _parallel(t: torch.Tensor) -> bool:
+    return t[0].numel() < PARALLEL_MAX
+
+
+def _lookahead(v: torch.Tensor, borrow: bool):
+    """Resolve the chains of one-limb carries (borrow: borrows) of v, whose
+    limbs lie in [0, 2^16] (borrow: [-1, 2^16)), in one step; returns
+    (limbs < 2^16, carry or borrow out of the top, 0 or 1).
+
+    A limb of 2^16 (borrow: -1) generates, a limb of 0xFFFF (borrow: 0)
+    passes on what comes in: the carries into the limbs are those of the
+    binary sum G + (G | P) of the generate and pass bit masks."""
+    n = v.shape[0]
+    bit, pw = _bits(n, v.device, v.dim())
+    gen = v < 0 if borrow else v > MASK
+    prop = v == 0 if borrow else v == MASK
+    G = (gen * pw).sum(0)
+    X = ((gen | prop) * pw).sum(0)
+    s = X + G
+    into = ((s ^ X ^ G).unsqueeze(0) >> bit) & 1
+    return (v - into if borrow else v + into) & MASK, s >> n
+
+
+@functools.lru_cache(maxsize=None)
+def _bits(n: int, device: torch.device, ndim: int):
+    """Columns i and 2^i for i < n."""
+    bit = torch.arange(n, dtype=torch.int64, device=device).view(
+        (n,) + (1,) * (ndim - 1))
+    return bit, 1 << bit
+
+
+def _carry_sweep(cols: torch.Tensor, passes: int):
+    """Propagate carries so every limb is < 2^16; returns (limbs, carry).
+
+    Limb-parallel: `passes` passes that move each limb's bits above 16 one
+    limb up, then one _lookahead. After k passes a limb is at most
+    2^16 - 1 + (B >> 16 k) for columns below B; the caller gives the k that
+    brings it to 2^16 (1 for B = 2^17, 3 for 2^37, 4 for 2^56)."""
+    if not _parallel(cols):
+        out = torch.empty_like(cols)
+        carry = torch.zeros_like(cols[0])
+        for i in range(cols.shape[0]):
+            v = cols[i] + carry
+            out[i] = v & MASK
+            carry = v >> LIMB_BITS
+        return out, carry
+    v = cols
     carry = torch.zeros_like(cols[0])
-    for i in range(cols.shape[0]):
-        v = cols[i] + carry
-        out[i] = v & MASK
-        carry = v >> LIMB_BITS
-    return out, carry
+    for _ in range(passes):
+        c = v >> LIMB_BITS
+        v = v & MASK
+        v[1:] += c[:-1]
+        carry = carry + c[-1]
+    v, top = _lookahead(v, borrow=False)
+    return v, carry + top
 
 
 def _sub_borrow(a: torch.Tensor, b: torch.Tensor):
     """a - b over 16 limbs; returns (difference mod 2^256, borrow in {0,1})."""
-    out = torch.empty_like(a)
-    borrow = torch.zeros_like(a[0])
-    for i in range(NLIMBS):
-        v = a[i] - b[i] - borrow
-        out[i] = v & MASK
-        borrow = -(v >> LIMB_BITS)  # v in [-2^16 - 1, 2^16): shift is 0 or -1
-    return out, borrow
+    if not _parallel(a):
+        out = torch.empty_like(a)
+        borrow = torch.zeros_like(a[0])
+        for i in range(NLIMBS):
+            v = a[i] - b[i] - borrow
+            out[i] = v & MASK
+            borrow = -(v >> LIMB_BITS)  # v in [-2^16 - 1, 2^16): 0 or -1
+        return out, borrow
+    v = a - b  # limbs in (-2^16, 2^16): one pass brings them to [-1, 2^16)
+    c = v >> LIMB_BITS
+    v = v & MASK
+    v[1:] += c[:-1]
+    v, top = _lookahead(v, borrow=True)
+    return v, top - c[-1]  # at most one of the two borrows is set
 
 
 def add_l(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    s, _ = _carry_sweep(a + b)
+    s, _ = _carry_sweep(a + b, 1)
     d, borrow = _sub_borrow(s, _p_col(spec.modulus, a.device, a.dim()))
     return torch.where(borrow.bool(), s, d)
 
 
 def sub_l(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     d, borrow = _sub_borrow(a, b)
-    c, _ = _carry_sweep(d + _p_col(spec.modulus, a.device, a.dim()))
+    c, _ = _carry_sweep(d + _p_col(spec.modulus, a.device, a.dim()), 1)
     return torch.where(borrow.bool(), c, d)
+
+
+def _columns(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n (<= 31) column sums of the schoolbook product of two
+    (16, *B) limb tensors, column k = sum over i + j = k of a_i b_j: the
+    (16, 16) products added into their columns in one index_add."""
+    rest = a.shape[1:]
+    o = (a.unsqueeze(1) * b.unsqueeze(0)).reshape(NLIMBS * NLIMBS, -1)
+    cols = torch.zeros((2 * NLIMBS - 1, o.shape[1]), dtype=torch.int64,
+                       device=a.device)
+    cols.index_add_(0, _diagonal(a.device), o)
+    return cols[:n].reshape((n,) + rest)
+
+
+@functools.lru_cache(maxsize=None)
+def _diagonal(device: torch.device) -> torch.Tensor:
+    """i + j of product a_i b_j at row 16 i + j."""
+    i = torch.arange(NLIMBS, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _nprime_col(modulus: int, device: torch.device, ndim: int):
+    """-p^-1 mod 2^256 as a limb column."""
+    v = (-pow(modulus, -1, MONT_R)) % MONT_R
+    return torch.tensor([(v >> (LIMB_BITS * i)) & MASK for i in range(NLIMBS)],
+                        dtype=torch.int64, device=device).reshape(
+        (NLIMBS,) + (1,) * (ndim - 1))
 
 
 def mul_l(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Montgomery product a * b * 2^-256 mod p, canonical (< p).
 
-    Schoolbook columns (each < 2^36), then the limb-serial Montgomery
-    reduction with the column carries pushed as it goes; every value stays
-    below 2^38, exact in int64."""
+    Limb-serial: schoolbook columns (each < 2^36), then the limb-serial
+    Montgomery reduction with the column carries pushed as it goes; every
+    value stays below 2^38, exact in int64. Limb-parallel: T = a b by
+    columns, m = (T mod 2^256)(-p^-1) mod 2^256 from T's low columns
+    (each < 2^56), then (T + m p) / 2^256 by columns; one carry sweep each."""
     p = _p_col(spec.modulus, a.device, a.dim())
-    cols = torch.zeros((2 * NLIMBS,) + a.shape[1:], dtype=torch.int64,
-                       device=a.device)
-    for i in range(NLIMBS):
-        cols[i:i + NLIMBS] += a[i] * b
-    for i in range(NLIMBS):
-        m = ((cols[i] & MASK) * spec.n0inv) & MASK
-        cols[i:i + NLIMBS] += m * p
-        cols[i + 1] += cols[i] >> LIMB_BITS
-    # t / 2^256 < 2p < 2^256: the sweep's carry out is 0
-    res, _ = _carry_sweep(cols[NLIMBS:])
+    if _parallel(a):
+        zero = torch.zeros_like(a[:1])
+        T = torch.cat([_columns(a, b, 2 * NLIMBS - 1), zero])
+        m, _ = _carry_sweep(_columns(
+            T[:NLIMBS], _nprime_col(spec.modulus, a.device, a.dim()).expand(
+                a.shape), NLIMBS), 4)  # T's columns < 2^36: these < 2^56
+        t, _ = _carry_sweep(T + torch.cat(
+            [_columns(m, p.expand(m.shape), 2 * NLIMBS - 1), zero]), 3)
+        res = t[NLIMBS:]  # the low half is 0: T + m p = 0 mod 2^256
+    else:
+        cols = torch.zeros((2 * NLIMBS,) + a.shape[1:], dtype=torch.int64,
+                           device=a.device)
+        for i in range(NLIMBS):
+            cols[i:i + NLIMBS] += a[i] * b
+        for i in range(NLIMBS):
+            m = ((cols[i] & MASK) * spec.n0inv) & MASK
+            cols[i:i + NLIMBS] += m * p
+            cols[i + 1] += cols[i] >> LIMB_BITS
+        # t / 2^256 < 2p < 2^256: the sweep's carry out is 0
+        res, _ = _carry_sweep(cols[NLIMBS:], 3)  # below 2^38
     d, borrow = _sub_borrow(res, p)
     return torch.where(borrow.bool(), res, d)
 

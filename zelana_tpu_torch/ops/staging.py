@@ -11,6 +11,9 @@ tensor as used by that stream (``record_stream``), so the caching allocator
 does not hand the memory back to the side stream while the main stream
 still reads it. On the CPU all three are no-ops.
 
+``upload`` makes one pinned copy on the current stream (the tape MSM's
+tape).
+
 Downloads: ``download`` starts a non_blocking copy into pinned memory and
 records an event, and ``fetch`` waits for it, so the host can go on
 dispatching while a result streams back.
@@ -76,3 +79,12 @@ def fetch(handle) -> np.ndarray:
     if done is not None:
         done.synchronize()
     return host.detach().contiguous().numpy().view(np.uint32)
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host -> card copy of numpy `arr` through pinned memory, queued
+    on the current stream; on the CPU the array's own tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
