@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --phases kernels,keygen   # a subset, no result
+    python3 chip_smoke.py --phases mesh   # the multi-card path alone
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: card name and power limit, CUDA and nvcc versions, and the
@@ -88,11 +89,34 @@ Phases (any failure exits non-zero and prints no result):
      one chunk prove under torch.profiler with the torch copy and gather
      kernels left on its device, the peak device memory, and R, R2 and K2
      of the chunk's z schedules;
-  8. one JSON line of per-kernel numbers (launches: the prover's kernels
+     With `mesh` too: the first chunk proved again through prove_chunks
+     over a one-rank NCCL group (a file store, in this process), its proof
+     byte-equal to the one-card proof, and merge_pairs (bucket_merge with
+     K = 2) on the segment sums that run added up, G1 and G2 at width
+     8,192, against bucket_merge_plain;
+  8. `mesh`: ntt_cross (the sharded NTT's cross-rank stage) against its
+     plain version at 2^19 elements, both halves of the butterfly, with
+     and without the final 1/n, timed beside its bound; then four ranks
+     spawned drive the multi-card path, over NCCL with a card a rank where
+     the host has four cards, else over gloo on the one card (the
+     exchanged arrays through host memory; NCCL refuses two ranks on one
+     card): sharded_msm_scan at 4 x 2^16 points, G1 and G2, against the
+     closed form; sharded_ntt / sharded_intt at 2^21 against the one-card
+     NTT; sharded_mimc_hash2 at 2^20 against hash2_batch; sharded_msm at
+     4 x 2^12 against the closed form; the chunk prover's prove_chunk of
+     the dryrun chunk through the mesh, byte-equal to
+     zelana_tpu_torch/testdata/chunk_101_d1_proof.json. Each rank's times,
+     its collectives' host time and its device busy time (torch.profiler)
+     are logged; the ranks' ntt_cross launches go to the kernels line.
+     After the path, merge_pairs against bucket_merge_plain on the arrays
+     the ranks exchanged in the reduction (widths 4,096 and 2,048, G1 and
+     G2) and on the two 8,192-wide orders of each first pair;
+  9. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen and, apart, on the
      tape MSMs, jac_add / jac_double on the Jacobian MSMs, mimc_permute
      and mont_mul (Poseidon's rounds) on the hashes, inv_fwd / inv_bwd /
-     inv_base on the inversions), the card, the result line.
+     inv_base on the inversions, ntt_cross on the mesh path), the card,
+     the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -117,7 +141,7 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "engines", "services", "production")
+          "engines", "services", "production", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -130,7 +154,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + "; a subset prints no result line")
-    phases = ap.parse_args().phases.split(",")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"unknown phase in {phases}")
     import torch
@@ -195,7 +220,11 @@ def main() -> int:
         phase_services(torch, dev, report)
     if "production" in phases:
         # step's launches come from the production keygen
-        launches["step"] = phase_production(torch, report)["step"]
+        launches["step"] = phase_production(torch, report,
+                                            "mesh" in phases)["step"]
+    if "mesh" in phases:
+        entry, launches["ntt_cross"] = phase_mesh(torch, dev, report)
+        kernels.append(entry)
     wall = time.time() - t_start
     report["wall_s"] = wall
     log(f"chip_smoke wall time: {wall:.1f} s")
@@ -2175,8 +2204,9 @@ def phase_services(torch, dev, report) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_production(torch, report) -> dict:
-    """Returns the kernel launches of the production keygen."""
+def phase_production(torch, report, mesh: bool = False) -> dict:
+    """Returns the kernel launches of the production keygen. `mesh`: prove
+    the first chunk again over a one-rank NCCL group."""
     from zelana_tpu_torch.groth16.keys import prepare_queries
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
@@ -2310,7 +2340,59 @@ def phase_production(torch, report) -> dict:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
     _z_schedules(prover, chunks[0], rep)
+    if mesh:
+        _world1_nccl(torch, prover, chunks[0], cps[0], rep)
     return launches
+
+
+def _world1_nccl(torch, prover, chunk, want, rep) -> None:
+    """The production chunk proved through prove_chunks over a one-rank
+    NCCL group (a file store, in this process): an NCCL all_gather on the
+    card, then the proof, byte-equal to the one-card proof `want`."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from zelana_tpu_torch.groth16.keys import prepare_queries
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.parallel import comm
+    from zelana_tpu_torch.parallel import distributed as D
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = D.init_file_store(os.path.join(tmp, "store"), 1, 0,
+                                 backend="nccl", device="cuda")
+        try:
+            x = torch.arange(64, dtype=torch.int32, device=mesh.device)
+            if mesh.backend != "nccl" or not torch.equal(
+                    comm.all_gather_tiled(x, mesh), x):
+                raise AssertionError(f"no NCCL all_gather on {mesh}")
+            t0 = time.time()
+            prepare_queries(prover.pk, mesh.device, mesh)
+            torch.cuda.synchronize()
+            pools_s = time.time() - t0
+            meshed = Groth16ChunkProver(prover.pk, prover.capacity,
+                                        prover.tree_depth,
+                                        device=mesh.device, mesh=mesh)
+            cuda.reset_launches()
+            with recorded_merges() as merges:
+                t0 = time.time()
+                cp = meshed.prove_chunks([chunk], batch_id=7)[0]
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        finally:
+            dist.destroy_process_group()
+    if cp.proof_bytes != want.proof_bytes:
+        raise AssertionError("the one-rank NCCL mesh proof differs from the "
+                             "one-card proof")
+    held = check_merges(torch, merges, (MSM_NB,), "one-rank NCCL chunk")
+    rep["mesh_world1_nccl"] = {"pools_s": pools_s, "prove_s": wall,
+                               "launches": launches, "merges_held": held}
+    log(f"production chunk through a one-rank NCCL mesh: sharded pools "
+        f"{pools_s:.2f} s, prove_chunks {wall:.2f} s, launches {launches}; "
+        f"proof byte-equal to the one-card proof; merge_pairs equal to "
+        f"bucket_merge_plain on its segment sums at {held}")
 
 
 def _z_schedules(prover, chunk, rep) -> None:
@@ -2334,6 +2416,276 @@ def _z_schedules(prover, chunk, rep) -> None:
         f"R2 x lanes2, K2: " + "; ".join(
             f"{v} x ({R} x {l}, {R2} x {l2}, K2 {K2})"
             for (R, l, R2, l2, K2), v in sorted(shapes.items())))
+
+
+# ---------------------------------------------------------------------------
+# `mesh`: the multi-card path, four ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MSM_NB = 8192  # the dense bucket array of the run-scan MSM (32 x 256)
+MERGE_KEEP = 2  # merge_pairs calls recorded for each curve and width
+MESH_SEED = 2026
+MESH_NTT = 1 << 21  # one transform over the four ranks
+MESH_MIMC = 1 << 20
+MESH_SCAN = 1 << 16  # run-scan MSM points a rank, per curve
+MESH_JAC = 1 << 12  # Jacobian MSM points a rank
+CROSS_N = 1 << 19  # a rank's block of the 2^21 transform
+
+
+@contextlib.contextmanager
+def recorded_merges():
+    """Copies of the operands of ops.curve_kernels.merge_pairs while in the
+    block (parallel/sharded.py calls it through the module): a list of
+    (curve, a, b), the first MERGE_KEEP calls of each curve and width."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+
+    calls, inner = [], CK.merge_pairs
+
+    def merge_pairs(a, b, curve):
+        if sum(c == curve and x.shape[1] == a.shape[1]
+               for c, x, _ in calls) < MERGE_KEEP:
+            calls.append((curve, a.clone(), b.clone()))
+        return inner(a, b, curve)
+
+    CK.merge_pairs = merge_pairs
+    try:
+        yield calls
+    finally:
+        CK.merge_pairs = inner
+
+
+def check_merges(torch, calls, widths, what: str) -> list:
+    """merge_pairs against bucket_merge_plain (K = 2 over [a | b]) on each
+    (curve, a, b) of `calls`, bit for bit; fails unless G1 and G2 were both
+    held at every width of `widths`. Returns the (curve, width) held."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+
+    seen = set()
+    for curve, a, b in calls:
+        w = a.shape[1]
+        dense = torch.arange(2 * w, dtype=torch.int32, device=a.device)
+        want = CK.bucket_merge_plain(torch.cat([a, b], 1), dense, 2, curve,
+                                     nb=w)
+        if not torch.equal(CK.merge_pairs(a, b, curve), want):
+            raise AssertionError(f"{what}: merge_pairs {curve} at width {w} "
+                                 f"differs from bucket_merge_plain")
+        seen.add((curve, w))
+    missing = sorted({(c, w) for c in ("g1", "g2") for w in widths} - seen)
+    if missing:
+        raise AssertionError(f"{what}: merge_pairs never ran at {missing}")
+    return sorted(seen)
+
+
+def _ntt_cross_kernel(torch, dev, rep) -> dict:
+    """ntt_cross against ntt_cross_plain on a rank's block of the 2^21
+    transform over four ranks (rank 1 at cross stage 1: the twiddle slice
+    at m), both halves of the butterfly, with and without the final
+    factor; timed on inputs rotated past the L2, beside its bound (96
+    bytes read and 32 written an element, one product). Returns the
+    kernels-line entry."""
+    import numpy as np
+
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.ops import ntt as NTT
+
+    rng = np.random.default_rng(19)
+    m = CROSS_N
+    copies = [tuple(rand_words(torch, rng, FR >> 224, m, dev)
+                    for _ in range(2)) for _ in range(2)]
+    own, recv = copies[0]
+    twst = rand_words(torch, rng, FR >> 224, MESH_NTT, dev)
+    col0 = NTT.cross_twiddle_column(m, 1, 1)
+    ek = L.encode_mont([pow(MESH_NTT, FR - 2, FR)], L.FR)[:, 0]
+    err = 0
+    for bit in (0, 1):
+        for e in (None, ek):
+            got = NTT.ntt_cross(own, recv, twst, col0, bit, e)
+            want = NTT.ntt_cross_plain(own, recv, twst, col0, bit, e)
+            mism, diff = compare(torch, got, want)
+            log(f"  ntt_cross 2^19 bit {bit}{' with 1/n' if e is not None else ''}: "
+                f"mismatches {mism}, max |diff| {diff}")
+            if mism:
+                raise AssertionError("ntt_cross differs from its plain "
+                                     "version")
+            err = max(err, diff)
+    ms = cuda_ms(torch, rotating(
+        lambda o, r: NTT.ntt_cross(o, r, twst, col0, 1), copies), 20)
+    plain = cuda_ms(torch, lambda: NTT.ntt_cross_plain(own, recv, twst, col0,
+                                                       1), 1, False)
+    bms, by = bound_ms(128 * m, m * MUL_OPS)
+    rep["ntt_cross_2_19"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                             "bound_by": by}
+    log(f"  ntt_cross 2^19: {ms:.5f} ms by events (inputs rotated past the "
+        f"L2), bound {bms:.5f} ms ({by}), {bms / ms:.1%} of it; plain "
+        f"{plain:.1f} ms")
+    return _entry("ntt_cross", "zelana_tpu_torch/csrc/ntt_kernels.cu",
+                  "zelana_tpu/ops/pallas_field.py:136", err, ms, plain, bms,
+                  by)
+
+
+def phase_mesh(torch, dev, report) -> tuple:
+    """Returns (ntt_cross's kernels-line entry, its launches over the
+    ranks' path). The ranks run over NCCL, rank r on card r, where the host
+    has MESH_WORLD cards, else over gloo on the one card (NCCL refuses two
+    ranks on one card)."""
+    from zelana_tpu_torch.parallel import distributed as D
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_WORLD else "gloo"
+    log(f"mesh: {cards} card(s), so the {MESH_WORLD} ranks run over "
+        f"{backend}")
+    rep = report["mesh"] = {"backend": backend}
+    entry = _ntt_cross_kernel(torch, dev, rep)
+    t0 = time.time()
+    ranks = D.run_local(mesh_rank, MESH_WORLD, backend=backend, device="cuda",
+                        args=(MESH_SEED,), timeout=600.0)
+    rep["wall_s"] = time.time() - t0
+    rep["ranks"] = ranks
+    where = "one card" if backend == "gloo" else f"{MESH_WORLD} cards"
+    log(f"mesh: {MESH_WORLD} ranks over {backend} on {where}, "
+        f"{rep['wall_s']:.1f} s wall with their start-up; every check "
+        f"passed on every rank, merge_pairs equal to bucket_merge_plain at "
+        f"{ranks[0]['merges_held']}")
+    for r in ranks:
+        log(f"  rank {r['rank']} ({r['backend']}, {r['device']}): set-up "
+            f"{r['setup_s']:.1f} s; path "
+            f"{r['path_s']:.2f} s (under the profiler), device busy "
+            f"{r['busy_ms']:.1f} ms, "
+            f"collectives {1e3 * r['comm']['seconds']:.1f} ms host time, "
+            f"{r['comm']['bytes'] / 2**20:.1f} MiB sent in "
+            f"{r['comm']['calls']} calls; launches {r['launches']}")
+        for name, t in r["times"].items():
+            log(f"    {name}: {t['ms']:.1f} ms, of it collectives "
+                f"{t['comm_ms']:.1f} ms")
+    launches = sum(r["launches"].get("ntt_cross", 0) for r in ranks)
+    if launches == 0:
+        raise AssertionError("the mesh path launched no ntt_cross")
+    return entry, launches
+
+
+def mesh_rank(mesh, seed: int) -> dict:
+    """One rank of the `mesh` phase (spawned by run_local): the same inputs
+    on every rank from `seed`, the multi-card path under torch.profiler
+    with the launch counts set to 0 just before, then every answer against
+    the one-card function or the closed form (a failed check fails the
+    rank and the run)."""
+    import numpy as np
+    import torch
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.curves.point_array import PointArray
+    from zelana_tpu_torch.fields.bn254 import R as FR
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.hashes.mimc_batch import hash2_batch
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import msm as MJ
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.ops import ntt as NTT
+    from zelana_tpu_torch.parallel import sharded as SH
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+
+    t_setup = time.time()
+    dev, W = mesh.device, mesh.size
+    rng = np.random.default_rng(seed)
+
+    def scalars(n):
+        limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+        limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
+        return limbs
+
+    scan = {}
+    for curve, G, comps in (("g1", G1, 2), ("g2", G2, 4)):
+        tile = PointArray.from_points(_tile_points(curve), comps)
+        idx = np.arange(W * MESH_SCAN) % MSM_TILE
+        limbs = scalars(W * MESH_SCAN)
+        scan[curve] = (PointArray(tile.arr[idx], tile.inf[idx], comps), limbs,
+                       G.mul(G.generator(),
+                             _tiled_scalar(limbs, MSM_TILE) % FR))
+    jac_pool = MSM.prepare_g1(_tile_points("g1"), dev)[0].repeat(
+        1, W * MESH_JAC // MSM_TILE).contiguous()
+    jac_limbs = scalars(W * MESH_JAC)
+    jac_digits = MSM.scalar_digits(jac_limbs)
+    jac_want = G1.mul(G1.generator(), _tiled_scalar(jac_limbs, MSM_TILE) % FR)
+    x = rand_words(torch, rng, FR >> 224, MESH_NTT, dev)
+    a, b = (rand_words(torch, rng, FR >> 224, MESH_MIMC, dev)
+            for _ in range(2))
+    plan = NTT.make_plan(MESH_NTT)
+    plan.on(dev)
+    with open("zelana_tpu_torch/testdata/chunk_101_d1_proof.json") as f:
+        vec = json.load(f)
+    prover = Groth16ChunkProver(
+        ProvingKey.load_npz("artifacts/chunk_101_d1_pk.npz"), (1, 0, 1), 1,
+        device=dev, mesh=mesh)
+    chunk = dryrun_chunk()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_setup
+
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        c0, t0 = mesh.comm["seconds"], time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                       "comm_ms": 1e3 * (mesh.comm["seconds"] - c0)}
+        return out
+
+    mesh.comm.update(seconds=0.0, bytes=0, calls=0)
+    cuda.reset_launches()
+    t_path = time.perf_counter()
+    with profiled(torch) as prof, recorded_merges() as merges:
+        got = {c: timed(f"sharded_msm_scan {c} {W} x 2^16",
+                        lambda c=c: SH.sharded_msm_scan(
+                            scan[c][0], scan[c][1], mesh, c))
+               for c in ("g1", "g2")}
+        fwd = timed("sharded_ntt 2^21", lambda: SH.sharded_ntt(x, plan, mesh))
+        inv = timed("sharded_intt 2^21",
+                    lambda: SH.sharded_intt(x, plan, mesh))
+        hashed = timed("sharded_mimc_hash2 2^20",
+                       lambda: SH.sharded_mimc_hash2(a, b, mesh))
+        jac = timed(f"sharded_msm g1 {W} x 2^12",
+                    lambda: SH.sharded_msm(jac_pool, jac_digits, mesh, "g1"))
+        cp = timed("prove_chunk chunk_101_d1",
+                   lambda: prover.prove_chunk(chunk, vec["batch_id"]))
+        path_s = time.perf_counter() - t_path
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    busy = sum(e.self_device_time_total
+               for e in device_events(prof, empty_ok=True)) / 1e3
+    comm_total = dict(mesh.comm)
+
+    for c in ("g1", "g2"):
+        if got[c] != scan[c][2]:
+            raise AssertionError(f"sharded_msm_scan {c} is wrong")
+    m = MESH_NTT // W
+    cols = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    if not torch.equal(fwd, NTT.ntt(x, plan)[:, cols]):
+        raise AssertionError("sharded_ntt differs from the one-card ntt")
+    if not torch.equal(inv, NTT.intt(x, plan)[:, cols]):
+        raise AssertionError("sharded_intt differs from the one-card intt")
+    if not torch.equal(hashed, hash2_batch(a, b)):
+        raise AssertionError("sharded_mimc_hash2 differs from hash2_batch")
+    if MJ._jac_to_affine_host(jac, "g1") != jac_want:
+        raise AssertionError("sharded_msm is wrong")
+    if cp.proof_bytes.hex() != vec["proof_bytes"]:
+        raise AssertionError("the mesh chunk proof differs from the JAX "
+                             "vector")
+    # the reduction's exchanged halves, and each curve's first pair in
+    # both orders at the full width
+    first = {}
+    for c, keep, recv in merges:
+        first.setdefault((c, keep.shape[1]), (keep, recv))
+    wide = [(c, torch.cat([k, r], 1), torch.cat([r, k], 1))
+            for (c, w), (k, r) in first.items() if w == MSM_NB // 2]
+    held = check_merges(torch, merges + wide,
+                        [MSM_NB >> k for k in range(W.bit_length())],
+                        f"rank {mesh.rank}")
+    return {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+            "setup_s": setup_s, "path_s": path_s,
+            "busy_ms": busy, "times": times, "comm": comm_total,
+            "launches": launches, "merges_held": held}
 
 
 def device_events(prof, empty_ok: bool = False) -> list:

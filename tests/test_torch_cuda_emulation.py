@@ -9,9 +9,9 @@ safegcd base inverse over the three fields, inv_fwd in both of its thread
 mappings (a thread a chain behind a cp.async ring; a prefix scan over a
 thread per element), inv_bwd in both of its (two threads a chain behind a
 cp.async ring; a suffix scan), both on inputs with zeros, and the NTT pass
-kernel (ntt_kernels.cu) pass by pass in every kind of transform, and the
-Jacobian point kernels (jac_kernels.cu) on every case of point_add's mask
-dispatch. This holds
+kernel (ntt_kernels.cu) pass by pass in every kind of transform, the
+sharded NTT's cross-rank stage (ntt_cross_kernel), and the Jacobian point
+kernels (jac_kernels.cu) on every case of point_add's mask dispatch. This holds
 the kernels' indexing, their barriers and their shared memory before a
 card sees them; the card runs the same comparison in chip_smoke.py. Equality is exact."""
 
@@ -96,7 +96,7 @@ def flib():
 
 @pytest.fixture(scope="module")
 def nlib():
-    return _build("ntt_kernels", 1)
+    return _build("ntt_kernels", 2)
 
 
 @pytest.fixture(scope="module")
@@ -155,6 +155,25 @@ def test_emulated_bucket_tail_matches_plain(lib, curve, K):
     assert lib.zt_bucket_tree(cid, merged.data_ptr(), nb, out.data_ptr(),
                               None) == 0
     assert torch.equal(out, CK.bucket_tail_plain(emit2, dense, K, curve))
+
+
+@pytest.mark.parametrize("curve,nb", [
+    ("g1", 8192), ("g1", 4096), ("g1", 2048),
+    ("g2", 8192), ("g2", 4096), ("g2", 2048)])
+def test_emulated_merge_pairs_matches_plain(lib, curve, nb):
+    """bucket_merge with K = 2 over [a | b], as merge_pairs calls it, at the
+    sharded MSM's widths: 8,192 (a shard's segments added up), 4,096 and
+    2,048 (the reduce-scatter's adds over four ranks), against
+    bucket_merge_plain."""
+    rng = np.random.default_rng(91 + nb.bit_length() + 8 * (curve == "g2"))
+    C = CK.rows(curve)
+    ab = _rand_words(rng, C, 2 * nb)
+    dense = torch.arange(2 * nb, dtype=torch.int32)
+    merged = torch.empty((C, nb), dtype=torch.int32)
+    assert lib.zt_bucket_merge(0 if curve == "g1" else 1, ab.data_ptr(),
+                               2 * nb, dense.data_ptr(), 2, nb,
+                               merged.data_ptr(), None) == 0
+    assert torch.equal(merged, CK.bucket_merge_plain(ab, dense, 2, curve, nb))
 
 
 @pytest.mark.parametrize("curve,count,addend", [
@@ -389,3 +408,75 @@ def test_emulated_ntt_pass_refusals(nlib):
     assert rc(s0=0, s1=5, epi=1) == 1
     assert rc(pro=1, ptab=None) == 1
     assert rc(epi=2, etab=None) == 1
+
+
+def _emulated_cross(nlib, own, recv, twst, col0, bit, ek=None):
+    out = torch.empty_like(own)
+    assert nlib.zt_ntt_cross(own.data_ptr(), recv.data_ptr(), twst.data_ptr(),
+                             twst.shape[1], col0, out.data_ptr(),
+                             own.shape[1], bit, NTT._host_words(ek),
+                             None) == 0
+    return out
+
+
+@pytest.mark.parametrize("world,k,last", [
+    (2, 0, False), (2, 0, True), (4, 0, False), (4, 1, False), (4, 1, True)])
+def test_emulated_ntt_cross_matches_plain(nlib, world, k, last):
+    """ntt_cross_kernel against ntt_cross_plain on every rank of cross
+    stage k of a 2^11 transform over `world` ranks: both halves of the
+    butterfly, the twiddle slice at (rank mod 2^k) m (nonzero only from
+    k = 1), and with `last` the inverse's last stage with its 1/n."""
+    n = 1 << 11
+    m = n // world
+    plan = NTT.make_plan(n)
+    twst = plan.on("cpu")["twi_st" if last else "tw_st"]
+    rng = np.random.default_rng(world * 10 + k)
+    own, recv = (_field_words(rng, L.FR, m) for _ in range(2))
+    ek = plan.n_inv if last else None
+    for d in range(world):
+        col0 = NTT.cross_twiddle_column(m, k, d)
+        bit = (d >> k) & 1
+        want = NTT.ntt_cross_plain(own, recv, twst, col0, bit, ek)
+        assert torch.equal(_emulated_cross(nlib, own, recv, twst, col0, bit,
+                                           ek), want), d
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_emulated_sharded_ntt_matches_ntt(nlib, world):
+    """Every rank of a sharded 2^10 NTT and iNTT simulated in one process:
+    block_stages, then the cross stages through the emulated kernel, the
+    blocks joined in rank order equal to the one-device transforms."""
+    n = 1 << 10
+    m = n // world
+    plan = NTT.make_plan(n)
+    x = _field_words(np.random.default_rng(world), L.FR, n)
+    for inverse, want in ((False, NTT.ntt(x, plan)),
+                          (True, NTT.intt(x, plan))):
+        twst = plan.on("cpu")["twi_st" if inverse else "tw_st"]
+        blocks = [NTT.block_stages(x, plan, world, d, inverse)
+                  for d in range(world)]
+        log_d = world.bit_length() - 1
+        for k in range(log_d):
+            ek = plan.n_inv if inverse and k == log_d - 1 else None
+            blocks = [_emulated_cross(nlib, blocks[d], blocks[d ^ (1 << k)],
+                                      twst, NTT.cross_twiddle_column(m, k, d),
+                                      (d >> k) & 1, ek)
+                      for d in range(world)]
+        assert torch.equal(torch.cat(blocks, dim=1), want), inverse
+
+
+def test_emulated_ntt_cross_refusals(nlib):
+    """The launcher refuses a twiddle slice past the table's end, a bit
+    that is not 0 or 1, and an empty block."""
+    x = _field_words(np.random.default_rng(5), L.FR, 64)
+    out = torch.empty_like(x)
+    p = x.data_ptr()
+
+    def rc(tw_ld=128, col0=64, m=64, bit=0):
+        return nlib.zt_ntt_cross(p, p, p, tw_ld, col0, out.data_ptr(), m,
+                                 bit, None, None)
+
+    assert rc() == 0
+    assert rc(col0=65) == 1
+    assert rc(bit=2) == 1
+    assert rc(m=0) == 1

@@ -57,6 +57,11 @@ from zelana_tpu_torch.sequencer import prover_service, transactions
 from zelana_tpu_torch.curves import g1
 
 assert msm_fast.msm_g1([(1, 2)], [5], device="cpu") == g1.mul((1, 2), 5)
+
+# the multi-card path
+from zelana_tpu_torch.parallel import comm, distributed, sharded
+
+assert distributed.init_distributed(device="cpu") is False
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or (m.startswith("zelana_tpu") and
@@ -146,3 +151,33 @@ def test_default_device_raises_without_cuda(cubic_key):
                  lambda: OwnershipProver()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_mesh_entry_points_raise_without_cuda(cubic_key, tmp_path):
+    """With no card, the multi-card entry points raise unless given
+    device="cpu": the process groups, run_local, and prove / the chunk
+    prover with a mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.groth16.prove import (prove, prove_many,
+                                                prove_synthesized)
+    from zelana_tpu_torch.parallel import distributed as D
+    from zelana_tpu_torch.parallel import sharded
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+
+    pk = ProvingKey.load_npz(cubic_key)
+    mesh = D.Mesh(group=None, size=2, rank=0, device=torch.device("cpu"),
+                  backend="gloo")
+    for call in (lambda: D.init_distributed(),
+                 lambda: D.init_file_store(str(tmp_path / "store"), 1, 0),
+                 lambda: D.global_mesh(),
+                 lambda: sharded.make_mesh(),
+                 lambda: D.run_local(print, 2),
+                 lambda: prove(pk, object(), mesh=mesh),
+                 lambda: prove_many(pk, [(object(), 0)], mesh=mesh),
+                 lambda: prove_synthesized(pk, object(), mesh=mesh),
+                 lambda: Groth16ChunkProver(pk, (1, 0, 1), 1, mesh=mesh)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert D.init_distributed(device="cpu") is False

@@ -1,6 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
+        [cubic]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -13,9 +14,14 @@
   ``runtime.ownership_api.OwnershipProver().prove(12345, 777, 999, 5)``
   (seed-0 keygen of the ownership circuit, then the proof); every field of
   its answer but the proving time.
+- ``zelana_tpu_torch/testdata/cubic_proof.json``: the JAX
+  ``groth16.prove.prove`` of the cubic circuit (x^3 + x + 5 == 35, x = 3)
+  as batch 7 with its seed-0 key (``groth16.setup.keygen``), and the
+  SHA-256 of that key's compressed serialization.
 
 The port is held against these files by tests/test_torch_prover_service.py
-(on the CPU) and by chip_smoke.py's ``services`` phase (on the card).
+and tests/test_torch_sharded.py (on the CPU) and by chip_smoke.py's
+``services`` phase (on the card).
 """
 
 from __future__ import annotations
@@ -96,6 +102,43 @@ def record_ownership() -> None:
     _write("ownership_proof.json", out)
 
 
+class Cubic:
+    """x^3 + x + 5 == out (tests/test_torch_prove.py's circuit)."""
+
+    def __init__(self, x):
+        self.x = x
+
+    def generate_constraints(self, cs):
+        out = cs.new_input(self.x ** 3 + self.x + 5)
+        x = cs.new_witness(self.x)
+        ((x * x) * x + x + cs.constant(5)).enforce_equal(out)
+
+
+CUBIC_X, CUBIC_BATCH_ID = 3, 7
+
+
+def record_cubic() -> None:
+    import hashlib
+
+    from zelana_tpu.groth16.prove import prove
+    from zelana_tpu.groth16.setup import keygen
+    from zelana_tpu.groth16.verify import verify
+
+    pk = keygen(Cubic(CUBIC_X), seed=0)
+    proof = prove(pk, Cubic(CUBIC_X), batch_id=CUBIC_BATCH_ID)
+    out_value = CUBIC_X ** 3 + CUBIC_X + 5
+    assert verify(pk.vk, proof, [out_value])
+    out = {
+        "circuit": "x^3 + x + 5 == out", "x": CUBIC_X,
+        "public_inputs": [str(out_value)], "batch_id": CUBIC_BATCH_ID,
+        "key_sha256": hashlib.sha256(pk.serialize_compressed()).hexdigest(),
+        "proof": proof.serialize_compressed().hex(),
+        "recorded_with": f"{CMD} cubic (zelana_tpu.groth16.prove.prove "
+                         "with zelana_tpu.groth16.setup.keygen(seed=0))",
+    }
+    _write("cubic_proof.json", out)
+
+
 def _write(name: str, obj: dict) -> None:
     with open(os.path.join(TESTDATA, name), "w") as f:
         json.dump(obj, f, indent=1)
@@ -104,8 +147,10 @@ def _write(name: str, obj: dict) -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["l2", "ownership"]
+    which = sys.argv[1:] or ["l2", "ownership", "cubic"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
         record_ownership()
+    if "cubic" in which:
+        record_cubic()

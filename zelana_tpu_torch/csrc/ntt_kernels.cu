@@ -218,3 +218,63 @@ extern "C" int zt_ntt_pass(const void* x, const void* y, const void* z,
         words_or_zero(pk), words_or_zero(ek), n, P, pro, epi);
     return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The cross-rank stage of one transform block-sharded over D ranks
+// (ops/ntt.py ntt_cross, parallel/sharded.py sharded_ntt). After the first
+// log m stages on its own block of m elements, rank d runs stage
+// s = log m + k against the block of rank d ^ 2^k, which it received:
+//
+//   bit k of d = 0 (the butterfly's lower half):  own + recv w
+//   bit k of d = 1 (its upper half):              recv - own w
+//
+// with w = w_(2^(s+1))^p at the element's position p in its group, column
+// col0 + j of the stage-major table (col0 = 2^s + (d mod 2^k) m), and on
+// the inverse's last stage a final product by 1/n (ek, by value).
+//
+// Replaces what zelana_tpu/parallel/sharded.py:258-259 computes per cross
+// stage: an L.mont_mul over the block (pallas_field._mont_mul_call at large
+// batches, the TPU kernel at pallas_field.py:136) and XLA's add, sub and
+// select; here one launch, one thread an element.
+//
+// What bounds it on an H100: an element reads 96 bytes (own, recv, its
+// twiddle) and writes 32 against one Montgomery product (264 32-bit
+// multiplies; two on the last inverse stage): 128 bytes / 3.35 TB/s =
+// 38 ps against 264 / 16.7 T/s = 16 ps. Bound by the bytes; each thread
+// loads word rows at neighbouring columns, so a warp's loads are whole
+// 128-byte lines.
+// ---------------------------------------------------------------------------
+
+constexpr int kCrossThreads = 256;
+
+__global__ void __launch_bounds__(kCrossThreads)
+    ntt_cross_kernel(const u32* __restrict__ own, const u32* __restrict__ recv,
+                     const u32* __restrict__ twst, long tw_ld, long col0,
+                     u32* __restrict__ out, long m, int bit, int scale,
+                     Fr ek) {
+    const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= m) return;
+    const Fr x = load<1>(own, m, j), y = load<1>(recv, m, j);
+    const Fr w = load<1>(twst, tw_ld, col0 + j);
+    Fr e = bit ? sub(y, mul(x, w)) : add(x, mul(y, w));
+    if (scale) e = mul(e, ek);
+    store<1>(out, m, j, e);
+}
+
+// own, recv, out: (8, m) words; twst: the (8, tw_ld) stage-major table,
+// read at columns [col0, col0 + m); bit: 0 or 1; ek: 8 host words of the
+// final factor, or null for none. Returns cudaGetLastError, or
+// cudaErrorInvalidValue for operands the stage does not take.
+extern "C" int zt_ntt_cross(const void* own, const void* recv,
+                            const void* twst, long tw_ld, long col0,
+                            void* out, long m, int bit, const void* ek,
+                            void* stream) {
+    if (!own || !recv || !twst || !out || m < 1 || col0 < 0 ||
+        col0 + m > tw_ld || (bit != 0 && bit != 1))
+        return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((m + kCrossThreads - 1) / kCrossThreads);
+    ntt_cross_kernel<<<blocks, kCrossThreads, 0, (cudaStream_t)stream>>>(
+        (const u32*)own, (const u32*)recv, (const u32*)twst, tw_ld, col0,
+        (u32*)out, m, bit, ek != nullptr, words_or_zero(ek));
+    return (int)cudaGetLastError();
+}

@@ -14,6 +14,7 @@ and prover/src/main.rs.bak export fns):
 
 from __future__ import annotations
 
+import functools
 import struct
 from dataclasses import dataclass, field
 from typing import List, Sequence
@@ -218,26 +219,32 @@ def proving_key_from_arrays(arrays) -> ProvingKey:
                       l_query=vecs["l"])
 
 
-def prepare_queries(pk: ProvingKey, device="cuda") -> dict:
-    """Device-resident query pools of `pk`, built once per device and cached
-    on the key. Identity points are stored as the generator (corrected at
-    msm_end). The l pool is prefix-padded with one identity slot per
-    instance variable (len(gamma_abc_g1) of them), so it is indexed by the
-    full assignment z and the a, b1 and l MSMs share one schedule set."""
+def prepare_queries(pk: ProvingKey, device="cuda", mesh=None) -> dict:
+    """Device-resident query pools of `pk`, built once per device (or, with
+    a parallel.distributed.Mesh, once per mesh: this rank's shards) and
+    cached on the key. Identity points are stored as the generator
+    (corrected at msm_end). The l pool is prefix-padded with one identity
+    slot per instance variable (len(gamma_abc_g1) of them), so it is
+    indexed by the full assignment z and the a, b1 and l MSMs share one
+    schedule set."""
     from ..device import resolve
     from ..ops import msm_scan as MSM
 
     dev = resolve(device)
     cache = pk.__dict__.setdefault("_prepared", {})
-    key = str(dev)
+    key = str(dev) if mesh is None else mesh.key
     if key not in cache:
         ni = len(pk.vk.gamma_abc_g1)
         l_pts = PointArray.from_points(pk.l_query, 2).with_identity_prefix(ni)
-        cache[key] = {
-            "a": MSM.prepare_g1(pk.a_query, dev),
-            "b1": MSM.prepare_g1(pk.b_g1_query, dev),
-            "b2": MSM.prepare_g2(pk.b_g2_query, dev),
-            "l": MSM.prepare_g1(l_pts, dev),
-            "h": MSM.prepare_g1(pk.h_query, dev),
-        }
+        if mesh is None:
+            on_g1 = functools.partial(MSM.prepare_g1, device=dev)
+            on_g2 = functools.partial(MSM.prepare_g2, device=dev)
+        else:
+            from ..parallel import sharded as SH
+
+            on_g1 = functools.partial(SH.prepare_g1_sharded, mesh=mesh)
+            on_g2 = functools.partial(SH.prepare_g2_sharded, mesh=mesh)
+        cache[key] = {"a": on_g1(pk.a_query), "b1": on_g1(pk.b_g1_query),
+                      "b2": on_g2(pk.b_g2_query), "l": on_g1(l_pts),
+                      "h": on_g1(pk.h_query)}
     return cache[key]

@@ -17,6 +17,14 @@ deterministic in batch_id and equals the JAX package's byte for byte.
 
 Every entry point takes `device`, "cuda" by default; with no card it raises
 unless the caller asks for "cpu", where the kernels' plain versions run.
+
+Several cards (the mesh path): `prove`, `prove_many` and
+`prove_synthesized` take `mesh`, a parallel.distributed.Mesh; with none
+given they use the initialized default process group when it has more
+than one rank. Every rank runs the witness map itself (replicated), the
+five MSMs run sharded over the mesh (parallel/sharded.py, h last), and
+every rank assembles and returns the same proof, byte-equal to the
+one-device proof.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from ..ops import limbs as L
 from ..ops import msm_scan as MSM
 from ..ops import ntt as NTT
 from ..ops import staging
+from ..parallel import distributed as D
 from ..poly.domain import Domain
 from ..trace import phase_log_start, phase_log_take  # noqa: F401
 from ..trace import trace as _trace
@@ -78,12 +87,12 @@ def witness_map_collect(h, m: int) -> list:
 
 
 def prove(pk: ProvingKey, circuit, batch_id: int = 0, check: bool = True,
-          device="cuda") -> Proof:
+          device="cuda", mesh=None) -> Proof:
     """check=False skips the satisfaction pre-pass (ark-groth16 semantics:
     an unsatisfied witness just yields a proof that fails verification)."""
-    dev = resolve(device)
+    dev, mesh = D.placement(device, mesh)
     return _prove_from_parts(pk, _synthesize_dsl(circuit, check), batch_id,
-                             dev)
+                             dev, mesh)
 
 
 def _synthesize_dsl(circuit, check: bool):
@@ -101,7 +110,7 @@ def _synthesize_dsl(circuit, check: bool):
 
 
 def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
-                      dev: torch.device) -> Proof:
+                      dev: torch.device, mesh=None) -> Proof:
     A, B, C, z, num_instance = parts
     assert len(pk.vk.gamma_abc_g1) == num_instance, "key / circuit mismatch"
 
@@ -113,20 +122,62 @@ def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
     # the h download streams back while this thread dispatches the MSMs
     h_dev, m = witness_map_dispatch(A, B, C, z, num_instance, dev)
     h_handle = staging.download(h_dev)
-    q = prepare_queries(pk, dev)
+    q = prepare_queries(pk, dev, mesh)
     digits_z = MSM.scalar_digits(z)
     return _msms_and_assembly(
         pk, q, r, s, digits_z, None,
-        lambda: MSM.scalar_digits(witness_map_collect(h_handle, m)), dev)
+        lambda: MSM.scalar_digits(witness_map_collect(h_handle, m)), dev,
+        mesh=mesh)
+
+
+def _sharded_msms(q, digits_z, segs_z, h_digits, mesh, t0) -> list:
+    """The five MSMs over the mesh, h last: the a/b1/l/b2 MSMs (the scalars
+    z, one shared schedule set of this rank's shard, built unless given)
+    run while the h coefficients stream back. Handles in the order a, b1,
+    h, b2, l."""
+    from ..parallel import sharded as SH
+
+    if segs_z is None:
+        segs_z = SH.shard_schedules(digits_z, q["a"].n, mesh)
+        _trace("z shard schedules built", t0)
+    t_a, t_b1, t_l, t_b2 = (
+        SH.msm_begin_scheds_sharded(q[k], segs_z, mesh,
+                                    MSM._inf_correction(digits_z, q[k].inf))
+        for k in ("a", "b1", "l", "b2"))
+    _trace("a/b1/l/b2 MSMs through the mesh (one shared schedule)", t0)
+    t_h = SH.msm_begin_sharded(q["h"], None, mesh, digits=h_digits())
+    _trace("h MSM through the mesh", t0)
+    return [t_a, t_b1, t_h, t_b2, t_l]
 
 
 def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, h_digits, dev,
-                       t0=None) -> Proof:
-    """The five MSMs and the host assembly. A worker thread runs
-    h_digits() (download and decode of the h coefficients, digits) and
+                       t0=None, mesh=None) -> Proof:
+    """The five MSMs (_local_msms on one device, _sharded_msms over a
+    mesh) and the host assembly. h_digits() downloads and decodes the h
+    coefficients and returns their digits."""
+    handles = (_sharded_msms(q, digits_z, segs_z, h_digits, mesh, t0)
+               if mesh is not None else
+               _local_msms(q, digits_z, segs_z, h_digits, dev, t0))
+    g_a_sum, g_b1_sum, h_sum, g_b2_sum, l_sum = MSM.msm_end_many(handles)
+    _trace("all five MSMs finished + downloaded", t0)
+
+    g_a = G1.add(G1.add(pk.vk.alpha_g1, g_a_sum), G1.mul(pk.delta_g1, r))
+    g_b1 = G1.add(G1.add(pk.beta_g1, g_b1_sum), G1.mul(pk.delta_g1, s))
+    g_b2 = G2.add(G2.add(pk.vk.beta_g2, g_b2_sum), G2.mul(pk.vk.delta_g2, s))
+
+    c_pt = G1.add(l_sum, h_sum)
+    c_pt = G1.add(c_pt, G1.mul(g_a, s))
+    c_pt = G1.add(c_pt, G1.mul(g_b1, r))
+    c_pt = G1.add(c_pt, G1.neg(G1.mul(pk.delta_g1, r * s % FR)))
+    return Proof(a=g_a, b=g_b2, c=c_pt)
+
+
+def _local_msms(q, digits_z, segs_z, h_digits, dev, t0) -> list:
+    """The five MSMs on one device. A worker thread runs h_digits() and
     builds and uploads the h schedules while this thread builds (unless
     given) the z schedules and dispatches the a/b1/l and b2 MSMs (one
-    shared schedule set: same scalars z, one lane count for G1 and G2)."""
+    shared schedule set: same scalars z, one lane count for G1 and G2).
+    Handles in the order a, b1, h, b2, l."""
 
     def _h_work():
         digits_h = h_digits()
@@ -148,27 +199,15 @@ def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, h_digits, dev,
     _trace("h downloaded + decoded + scheduled (worker thread)", t0)
     t_h = MSM.msm_begin_scheds(q["h"], segs_h,
                                MSM._inf_correction(digits_h, q["h"][1]))
-    g_a_sum, g_b1_sum, h_sum, g_b2_sum, l_sum = MSM.msm_end_many(
-        [t_a, t_b1, t_h, t_b2, t_l])
-    _trace("all five MSMs finished + downloaded", t0)
-
-    g_a = G1.add(G1.add(pk.vk.alpha_g1, g_a_sum), G1.mul(pk.delta_g1, r))
-    g_b1 = G1.add(G1.add(pk.beta_g1, g_b1_sum), G1.mul(pk.delta_g1, s))
-    g_b2 = G2.add(G2.add(pk.vk.beta_g2, g_b2_sum), G2.mul(pk.vk.delta_g2, s))
-
-    c_pt = G1.add(l_sum, h_sum)
-    c_pt = G1.add(c_pt, G1.mul(g_a, s))
-    c_pt = G1.add(c_pt, G1.mul(g_b1, r))
-    c_pt = G1.add(c_pt, G1.neg(G1.mul(pk.delta_g1, r * s % FR)))
-    return Proof(a=g_a, b=g_b2, c=c_pt)
+    return [t_a, t_b1, t_h, t_b2, t_l]
 
 
 def prove_many(pk: ProvingKey, jobs, check: bool = False,
-               device="cuda") -> list:
+               device="cuda", mesh=None) -> list:
     """Pipelined proves: synthesis of proof k+1 runs on a worker thread
     while proof k's device work is in flight. jobs: [(circuit, batch_id)];
     returns [Proof] in order."""
-    dev = resolve(device)
+    dev, mesh = D.placement(device, mesh)
     out = []
     with _cf.ThreadPoolExecutor(1) as ex:
         nxt = ex.submit(_synthesize_dsl, jobs[0][0], check)
@@ -176,7 +215,8 @@ def prove_many(pk: ProvingKey, jobs, check: bool = False,
             cur = nxt
             if i + 1 < len(jobs):
                 nxt = ex.submit(_synthesize_dsl, jobs[i + 1][0], check)
-            out.append(_prove_from_parts(pk, cur.result(), batch_id, dev))
+            out.append(_prove_from_parts(pk, cur.result(), batch_id, dev,
+                                         mesh))
     return out
 
 
@@ -250,7 +290,7 @@ def witness_map_dispatch_native(system, staged: StagedWitnessMap = None,
 
 def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
                       check: bool = True, precomputed: dict = None,
-                      device="cuda") -> Proof:
+                      device="cuda", mesh=None) -> Proof:
     """prove() over a natively synthesized system (the production chunk
     path: synthesis, satisfaction check, matvec and digits are C / numpy).
 
@@ -260,7 +300,7 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
     kernel reads them."""
     from ..r1cs.native_synth import from_mont_words
 
-    dev = resolve(device)
+    dev, mesh = D.placement(device, mesh)
     t0 = time.time()
     if check:
         bad = system.check()
@@ -280,7 +320,7 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
     h_dev, m = witness_map_dispatch_native(system, pre.get("wm"), dev)
     h_handle = staging.download(h_dev)
     _trace("witness map dispatched (NTT chain queued)", t0)
-    q = prepare_queries(pk, dev)
+    q = prepare_queries(pk, dev, mesh)
     _trace("query pools prepared/cached", t0)
     digits_z = (pre["digits_z"] if "digits_z" in pre
                 else MSM.scalar_digits(system.z))
@@ -288,4 +328,4 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
         pk, q, r, s, digits_z, pre.get("segs_z"),
         lambda: MSM.scalar_digits(
             from_mont_words(staging.fetch(h_handle))[:m - 1]),
-        dev, t0)
+        dev, t0, mesh)

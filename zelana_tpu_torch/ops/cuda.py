@@ -31,9 +31,9 @@ SOURCES = ("field_kernels", "curve_kernels", "ntt_kernels", "jac_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "runscan": 0, "bucket_tail": 0,
-            "step": 0, "mimc_permute": 0, "inv_fwd": 0, "inv_bwd": 0,
-            "inv_base": 0, "jac_add": 0, "jac_double": 0}
+LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "ntt_cross": 0, "runscan": 0,
+            "bucket_tail": 0, "step": 0, "mimc_permute": 0, "inv_fwd": 0,
+            "inv_bwd": 0, "inv_base": 0, "jac_add": 0, "jac_double": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -107,6 +107,7 @@ def _declare(cdll) -> None:
     sigs = {
         "zt_mont_mul": [i, p, p, p, l, p],
         "zt_ntt_pass": [p, p, p, p, p, p, p, p, p, l, i, i, i, i, p],
+        "zt_ntt_cross": [p, p, p, l, l, p, l, i, p, p],
         "zt_runscan": [i, i, p, p, p, p, i, i, l, p],
         "zt_bucket_merge": [i, p, l, p, i, i, p, p],
         "zt_bucket_tree": [i, p, i, p, p],

@@ -9,11 +9,14 @@ version.
   ``pallas_curve.runscan_call``. The emit depends on the stream shape
   (rows x lanes) and is bit-equal to the TPU kernel's at equal shapes.
 - ``bucket_tail(emit2, dense, K, curve)``: the MSM's tail after the
-  level-2 scan, the K dense layers folded into 8,192 buckets and the
-  256 bit-subset sums of them, gathers included. CUDA kernels
-  ``bucket_merge_kernel`` and ``bucket_tree_kernel`` (six threads per
-  complete add); they replace the TPU path's ``pallas_curve.pairs_add_call``
-  launches and the XLA gathers around them.
+  level-2 scan, gathers included: ``bucket_merge`` folds the K dense
+  layers into 8,192 buckets, ``bucket_tree`` forms the 256 bit-subset sums
+  of them. CUDA kernels ``bucket_merge_kernel`` and ``bucket_tree_kernel``
+  (six threads per complete add); they replace the TPU path's
+  ``pallas_curve.pairs_add_call`` launches and the XLA gathers around
+  them. The sharded MSM runs the two apart, with its reduce-scatter
+  between them, and adds bucket arrays column by column with
+  ``merge_pairs`` (bucket_merge with K = 2).
 - ``step(pool, off, S, curve, ..., rounds)``: ``rounds`` in-place rounds of
   a slot-pool reduction tree in one launch (complete add, or in round 0 the
   9-product mixed add of two affine operands), round-0 operands read from
@@ -308,27 +311,46 @@ def subset_idx(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(idx.reshape(-1)).to(device)
 
 
-def bucket_tail_plain(emit2: torch.Tensor, dense: torch.Tensor, K: int,
-                      curve: str) -> torch.Tensor:
-    """emit2 (C, m) level-2 emit words, dense (K * 8192,) int32 columns of
-    it -> (C, 256) projective bit-subset sums, column t * 32 + w. Bucket b
-    is ((L0 + L1) + L2) + ... over its K dense layers (layer k is column
-    dense[k * 8192 + b]); then each group's 128 buckets (subset_idx) fold
-    pairwise, x[i] += x[i + h] for h = 64, ..., 1."""
+MERGE_ADDS = 32  # buckets a block of bucket_merge_kernel: nb's multiple
+NB = SUBSET_WINDOWS * SUBSET_BUCKETS  # the dense bucket layout, 8,192
+
+
+def bucket_merge_plain(emit: torch.Tensor, dense: torch.Tensor, K: int,
+                       curve: str, nb: int = NB) -> torch.Tensor:
+    """emit (C, m) projective words, dense (K * nb,) int32 columns of it
+    -> (C, nb): bucket b is ((L0 + L1) + L2) + ... over its K layers,
+    layer k being column dense[k * nb + b]."""
     C = rows(curve)
-    nb = SUBSET_WINDOWS * SUBSET_BUCKETS
-    layers = emit2.index_select(1, dense).view(C, K, nb)
+    layers = emit.index_select(1, dense).view(C, K, nb)
     merged = layers[:, 0]
     for k in range(1, K):
         merged = pairs_add_plain(merged, layers[:, k], curve)
+    return merged
+
+
+def bucket_tree_plain(merged: torch.Tensor, curve: str) -> torch.Tensor:
+    """merged (C, 8192) dense buckets (window w, digit d at w * 256 + d)
+    -> (C, 256) projective bit-subset sums, column t * 32 + w: each
+    group's 128 buckets (subset_idx) fold pairwise, x[i] += x[i + h] for
+    h = 64, ..., 1."""
+    C = rows(curve)
     h = SUBSET_BUCKETS // 2
-    x = merged.index_select(1, subset_idx(emit2.device)).view(C, -1, h)
+    x = merged.index_select(1, subset_idx(merged.device)).view(C, -1, h)
     while h > 1:
         h //= 2
         x = pairs_add_plain(x[:, :, :h].reshape(C, -1),
                             x[:, :, h:2 * h].reshape(C, -1),
                             curve).view(C, -1, h)
     return x[:, :, 0]
+
+
+def bucket_tail_plain(emit2: torch.Tensor, dense: torch.Tensor, K: int,
+                      curve: str) -> torch.Tensor:
+    """emit2 (C, m) level-2 emit words, dense (K * 8192,) int32 columns of
+    it -> (C, 256) projective bit-subset sums: bucket_merge_plain, then
+    bucket_tree_plain."""
+    return bucket_tree_plain(bucket_merge_plain(emit2, dense, K, curve),
+                             curve)
 
 
 # ---------------------------------------------------------------------------
@@ -365,29 +387,58 @@ def runscan(pool: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
     return emit
 
 
-def bucket_tail(emit2: torch.Tensor, dense: torch.Tensor, K: int,
-                curve: str) -> torch.Tensor:
-    """The MSM's bucket tail, gathers included; see bucket_tail_plain for
-    the contract. emit2: (C, m) words with contiguous columns (the level-2
-    run-scan's emit, viewed flat); dense: K * 8192 int32 columns of it."""
-    if emit2.device.type == "cpu" and dense.device.type == "cpu":
-        return bucket_tail_plain(emit2, dense, K, curve)
+def bucket_merge(emit: torch.Tensor, dense: torch.Tensor, K: int,
+                 curve: str, nb: int = NB) -> torch.Tensor:
+    """The K dense layers folded into nb buckets; see bucket_merge_plain.
+    emit: (C, m) words with contiguous columns; dense: K * nb int32
+    columns of it; nb a multiple of MERGE_ADDS."""
+    if emit.device.type == "cpu" and dense.device.type == "cpu":
+        return bucket_merge_plain(emit, dense, K, curve, nb)
+    if nb % MERGE_ADDS or nb < MERGE_ADDS or K < 1:
+        raise ValueError(f"bucket_merge: nb = {nb} is not a positive "
+                         f"multiple of {MERGE_ADDS}, or K = {K} < 1")
     C = rows(curve)
-    nb = SUBSET_WINDOWS * SUBSET_BUCKETS
-    dev = cuda.check([emit2, dense], [(C, emit2.shape[1]), (K * nb,)],
-                     "bucket_tail")
-    cid = 0 if curve == "g1" else 1
+    dev = cuda.check([emit, dense], [(C, emit.shape[1]), (K * nb,)],
+                     "bucket_merge")
     merged = torch.empty((C, nb), dtype=torch.int32, device=dev)
-    cuda.launch("curve_kernels", "zt_bucket_merge", cid, emit2.data_ptr(),
-                emit2.shape[1], dense.data_ptr(), K, nb, merged.data_ptr(),
-                device=dev)
+    cuda.launch("curve_kernels", "zt_bucket_merge", 0 if curve == "g1" else 1,
+                emit.data_ptr(), emit.shape[1], dense.data_ptr(), K, nb,
+                merged.data_ptr(), device=dev)
     cuda.LAUNCHES["bucket_tail"] += 1
+    return merged
+
+
+def bucket_tree(merged: torch.Tensor, curve: str) -> torch.Tensor:
+    """The 256 bit-subset sums of the dense buckets; see
+    bucket_tree_plain."""
+    if merged.device.type == "cpu":
+        return bucket_tree_plain(merged, curve)
+    C = rows(curve)
+    dev = cuda.check([merged], [(C, NB)], "bucket_tree")
     out = torch.empty((C, SUBSET_BITS * SUBSET_WINDOWS), dtype=torch.int32,
                       device=dev)
-    cuda.launch("curve_kernels", "zt_bucket_tree", cid, merged.data_ptr(),
-                nb, out.data_ptr(), device=dev)
+    cuda.launch("curve_kernels", "zt_bucket_tree", 0 if curve == "g1" else 1,
+                merged.data_ptr(), NB, out.data_ptr(), device=dev)
     cuda.LAUNCHES["bucket_tail"] += 1
     return out
+
+
+def bucket_tail(emit2: torch.Tensor, dense: torch.Tensor, K: int,
+                curve: str) -> torch.Tensor:
+    """The MSM's bucket tail, gathers included: bucket_merge, then
+    bucket_tree; see bucket_tail_plain. emit2: (C, m) words with contiguous
+    columns (the level-2 run-scan's emit, viewed flat); dense: K * 8192
+    int32 columns of it."""
+    return bucket_tree(bucket_merge(emit2, dense, K, curve), curve)
+
+
+def merge_pairs(a: torch.Tensor, b: torch.Tensor, curve: str) -> torch.Tensor:
+    """a + b column by column, (C, w) projective words each, w a multiple
+    of MERGE_ADDS: bucket_merge with K = 2 over [a | b] (the sharded MSM's
+    reduce-scatter adds and its fold of a shard's segments)."""
+    w = a.shape[1]
+    dense = torch.arange(2 * w, dtype=torch.int32, device=a.device)
+    return bucket_merge(torch.cat([a, b], dim=1), dense, 2, curve, nb=w)
 
 
 STEP_MAX_ROUNDS = 5  # tree levels step_kernel keeps pending operands for

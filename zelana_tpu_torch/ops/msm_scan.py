@@ -185,15 +185,22 @@ def _upload(s: Schedule, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _device_msm(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
-    """One segment: pool (VC, n) affine words, d its uploaded schedule ->
-    (C, 8 * 32) words of the projective bit-subset sums."""
+def device_merged(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
+    """One segment up to its dense buckets: pool (VC, n) affine words, d
+    its uploaded schedule -> (C, 8192) words, bucket w * 256 + digit of
+    window w (the sharded MSM reduces these across ranks)."""
     C = CK.rows(curve)
     emit = CK.runscan(pool, d["pid"], d["flag"], curve)
     emit2 = CK.runscan(emit.view(C, -1), d["pos2"], d["flag2"], curve,
                        proj_in=True).view(C, -1)
-    K = d["dense"].numel() // (SCAN_WINDOWS * SCAN_BUCKETS)
-    return CK.bucket_tail(emit2, d["dense"], K, curve)
+    K = d["dense"].numel() // CK.NB
+    return CK.bucket_merge(emit2, d["dense"], K, curve)
+
+
+def _device_msm(pool: torch.Tensor, d: dict, curve: str) -> torch.Tensor:
+    """One segment: pool (VC, n) affine words, d its uploaded schedule ->
+    (C, 8 * 32) words of the projective bit-subset sums."""
+    return CK.bucket_tree(device_merged(pool, d, curve), curve)
 
 
 # ---------------------------------------------------------------------------
@@ -360,14 +367,19 @@ class _MultiMsm:
         self.done = []  # fetched finals (uint32 numpy)
 
 
-def build_segment_schedules(digits: np.ndarray, lanes: int = LANES) -> list:
-    """Host schedules of each CHUNK_N-point segment of one scalar vector.
-    The list is shareable across MSMs with the same scalars: each entry's
-    device copy is uploaded once and cached in the entry."""
+def build_segment_schedules(digits: np.ndarray, lanes: int = LANES,
+                            chunk_n: int = None) -> list:
+    """Host schedules of each chunk_n-point segment (CHUNK_N by default,
+    at most 2^16) of one scalar vector. The list is shareable across MSMs
+    with the same scalars: each entry's device copy is uploaded once and
+    cached in the entry."""
+    chunk_n = CHUNK_N if chunk_n is None else chunk_n
+    if not 0 < chunk_n <= 1 << 16:
+        raise ValueError(f"segments of {chunk_n} points: ids are 16-bit")
     n = digits.shape[1]
     segs = []
-    for lo in range(0, max(n, 1), CHUNK_N):
-        hi = min(lo + CHUNK_N, n)
+    for lo in range(0, max(n, 1), chunk_n):
+        hi = min(lo + chunk_n, n)
         segs.append({"lo": lo, "hi": hi,
                      "sched": build_schedule(digits[:, lo:hi], lanes=lanes),
                      "dev": None})

@@ -17,6 +17,13 @@ passes work in place on the output buffer; the inputs are never written.
 ``ntt_pass_plain`` is the same pass in plain torch. Tensors on the CPU and
 ``plain=True`` run it, as one pass of every stage unless a split is forced
 (``transform_split``); nothing on the CUDA path does.
+
+One transform block-sharded over D ranks (parallel/sharded.py): each rank
+runs the first log(n/D) stages on its block with the pass kernel
+(``block_stages``), then the last log D stages one at a time against the
+partner rank's block (``ntt_cross``: CUDA kernel ``ntt_cross_kernel``, one
+thread an element, the fused counterpart of the JAX sharded NTT's
+``L.mont_mul`` and add / sub; plain version ``ntt_cross_plain``).
 """
 
 from __future__ import annotations
@@ -236,6 +243,25 @@ KINDS = {
 }
 
 
+def _run_passes(xs, twst, log_n: int, split, plain: bool, pro=PRO_NONE,
+                ptab=None, pk=None, epi=EPI_NONE, etab=None,
+                ek=None) -> torch.Tensor:
+    """The passes of one transform of 2^log_n elements over `twst`, the
+    prologue in the first, the epilogue in the last."""
+    if split is None:
+        split = [log_n] if plain else default_split(log_n)
+    run = ntt_pass_plain if plain else ntt_pass
+    y = None
+    for s0, s1 in _passes(log_n, split):
+        kw = {}
+        if s0 == 0 and pro != PRO_NONE:
+            kw.update(pro=pro, ptab=ptab, pk=pk)
+        if s1 == log_n and epi != EPI_NONE:
+            kw.update(epi=epi, etab=etab, ek=ek)
+        y = run(xs if s0 == 0 else [y], twst, s0, s1, **kw)
+    return y
+
+
 def transform_split(kind: str, xs, plan: NttPlan, split=None,
                     plain: bool = False) -> torch.Tensor:
     """The transform `kind` of KINDS over xs ([x], or [a, b, c] for the
@@ -245,23 +271,13 @@ def transform_split(kind: str, xs, plan: NttPlan, split=None,
     quotient_intt call it with None; tests and measurements force splits."""
     inverse, pro, epi = KINDS[kind]
     t = plan.on(xs[0].device)
-    log_n = plan.domain.log_size
-    plain = plain or xs[0].device.type == "cpu"
-    if split is None:
-        split = [log_n] if plain else default_split(log_n)
-    run = ntt_pass_plain if plain else ntt_pass
-    twst = t["twi_st" if inverse else "tw_st"]
-    y = None
-    for s0, s1 in _passes(log_n, split):
-        kw = {}
-        if s0 == 0 and pro != PRO_NONE:
-            kw.update(pro=pro, ptab=t["coset"] if pro == PRO_COSET else None,
-                      pk=plan.z_inv if pro == PRO_QUOTIENT else None)
-        if s1 == log_n and epi != EPI_NONE:
-            kw.update(epi=epi, ek=plan.n_inv if epi == EPI_SCALAR else None,
-                      etab=t["coset_inv_n"] if epi == EPI_TABLE else None)
-        y = run(xs if s0 == 0 else [y], twst, s0, s1, **kw)
-    return y
+    return _run_passes(
+        xs, t["twi_st" if inverse else "tw_st"], plan.domain.log_size, split,
+        plain or xs[0].device.type == "cpu", pro,
+        ptab=t["coset"] if pro == PRO_COSET else None,
+        pk=plan.z_inv if pro == PRO_QUOTIENT else None, epi=epi,
+        etab=t["coset_inv_n"] if epi == EPI_TABLE else None,
+        ek=plan.n_inv if epi == EPI_SCALAR else None)
 
 
 def ntt(x: torch.Tensor, plan: NttPlan, plain: bool = False) -> torch.Tensor:
@@ -290,3 +306,91 @@ def quotient_intt(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """coset_intt((a b - c) / Z) of coset evaluations a, b, c: the witness
     map's h(x), with the quotient in the first pass."""
     return transform_split("quotient", [a, b, c], plan, plain=plain)
+
+
+# ---------------------------------------------------------------------------
+# the pieces of one transform block-sharded over D ranks
+# (parallel/sharded.py runs them, with the exchanges between them)
+# ---------------------------------------------------------------------------
+
+
+def block_source(n: int, D: int, d: int, device) -> torch.Tensor:
+    """The inputs of rank d's block. After the DIT's bit reversal, rank d
+    holds positions [d m, (d + 1) m), m = n / D; position d m + j holds
+    x[brev_n(d m + j)] = x[brev_m(j) D + brev_D(d)]. So the block is the
+    m-point DIT input of the stride-D subsequence x[brev_D(d)::D], whose
+    indices this returns (the first local pass reverses them itself)."""
+    log_d = D.bit_length() - 1
+    start = int(format(d, f"0{log_d}b")[::-1], 2) if log_d else 0
+    return torch.arange(start, n, D, device=device)
+
+
+def block_stages(x: torch.Tensor, plan: NttPlan, D: int, d: int,
+                 inverse: bool = False) -> torch.Tensor:
+    """Stages [0, log m) of the 2^L transform of x ((8, n) words, whole on
+    every rank) on rank d of D: the m-point DIT of x[brev_D(d)::D]. Stage s
+    multiplies by w_(2^(s+1))^k whatever the transform's size, so the
+    passes read the first m columns of the n-point stage-major table (the
+    m-point plan's whole table). No 1/n here: it comes with the last
+    cross stage (ntt_cross's ek); with D = 1 this is the whole transform
+    and the iNTT's last pass scales by 1/n."""
+    n = plan.n
+    m = n // D
+    if D < 1 or D & (D - 1) or m < 2:
+        raise ValueError(f"block_stages: {D} ranks do not split a "
+                         f"transform of {n}")
+    y = x.index_select(1, block_source(n, D, d, x.device))
+    twst = plan.on(x.device)["twi_st" if inverse else "tw_st"]
+    if D > 1:
+        twst = twst[:, :m].contiguous()
+    epi = EPI_SCALAR if inverse and D == 1 else EPI_NONE
+    return _run_passes([y], twst, m.bit_length() - 1, None,
+                       x.device.type == "cpu", epi=epi, ek=plan.n_inv)
+
+
+def cross_twiddle_column(m: int, k: int, d: int) -> int:
+    """The first stage-major column of rank d's twiddles at cross stage k
+    (stage s = log m + k): the butterfly at global position p < 2^s of its
+    group multiplies by w_(2^(s+1))^p, column 2^s + p, and rank d's
+    positions start at p = (d mod 2^k) m."""
+    return (m << k) + (d & ((1 << k) - 1)) * m
+
+
+def ntt_cross_plain(own: torch.Tensor, recv: torch.Tensor,
+                    twst: torch.Tensor, col0: int, bit: int,
+                    ek=None) -> torch.Tensor:
+    """One cross-rank DIT stage on a rank's block: own (8, m) words, recv
+    the partner's, twst the (8, n) stage-major table, read at columns
+    [col0, col0 + m). bit = 0 (the lower half of the butterfly): own + recv
+    tw; bit = 1: recv - own tw. ek, (8,) words: times ek after (the 1/n of
+    an iNTT's last stage). Returns a new tensor."""
+    m = own.shape[1]
+    tw = twst[:, col0:col0 + m]
+    mul = functools.partial(FK.mont_mul_plain, spec=L.FR)
+    if bit:
+        out = L.sub(recv, mul(own, tw), L.FR)
+    else:
+        out = L.add(own, mul(recv, tw), L.FR)
+    if ek is not None:
+        out = mul(out, _scalar(ek, out.device))
+    return out
+
+
+def ntt_cross(own: torch.Tensor, recv: torch.Tensor, twst: torch.Tensor,
+              col0: int, bit: int, ek=None) -> torch.Tensor:
+    """ntt_cross_plain's stage by ntt_cross_kernel on CUDA tensors (the
+    plain version on CPU tensors)."""
+    if all(t.device.type == "cpu" for t in (own, recv, twst)):
+        return ntt_cross_plain(own, recv, twst, col0, bit, ek)
+    m, n = own.shape[1], twst.shape[1]
+    if not 0 <= col0 <= n - m:
+        raise ValueError(f"ntt_cross: columns [{col0}, {col0 + m}) outside "
+                         f"the table of {n}")
+    dev = cuda.check([own, recv, twst], [(L.NWORDS, m)] * 2 +
+                     [(L.NWORDS, n)], "ntt_cross")
+    out = torch.empty_like(own)
+    cuda.launch("ntt_kernels", "zt_ntt_cross", own.data_ptr(),
+                recv.data_ptr(), twst.data_ptr(), n, col0, out.data_ptr(), m,
+                int(bit), _host_words(ek), device=dev)
+    cuda.LAUNCHES["ntt_cross"] += 1
+    return out

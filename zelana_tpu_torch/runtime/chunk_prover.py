@@ -25,6 +25,7 @@ from typing import List
 from ..circuits.batch_mimc import BatchCircuitMiMC
 from ..device import resolve
 from ..groth16.keys import Proof, ProvingKey
+from ..parallel import distributed as D
 from ..trace import trace
 from .chunk_witness import chunk_accumulators
 from .coordinator import Chunk, ChunkProof
@@ -67,14 +68,17 @@ def _public_values(circuit, batch_id: int) -> list:
 
 
 class Groth16ChunkProver:
-    """One proving key, any chunk of the fixed capacity, on one device."""
+    """One proving key, any chunk of the fixed capacity, on one device or
+    over a mesh (a parallel.distributed.Mesh; with none given, the
+    initialized default group when it has more than one rank): every rank
+    proves each chunk with the MSMs sharded and returns the same proof."""
 
     def __init__(self, pk: ProvingKey, capacity=(8, 4, 4),
-                 tree_depth: int = 32, device="cuda"):
+                 tree_depth: int = 32, device="cuda", mesh=None):
         self.pk = pk
         self.capacity = capacity
         self.tree_depth = tree_depth
-        self.device = resolve(device)
+        self.device, self.mesh = D.placement(device, mesh)
 
     @classmethod
     def setup(cls, capacity=(8, 4, 4), tree_depth: int = 32, seed: int = 0,
@@ -145,7 +149,8 @@ class Groth16ChunkProver:
         start = time.time()
         circuit = self.build_circuit(chunk, batch_id)
         proof = prove_synthesized(self.pk, synthesize_chunk(circuit),
-                                  batch_id=batch_id, device=self.device)
+                                  batch_id=batch_id, device=self.device,
+                                  mesh=self.mesh)
         return self._chunk_proof(chunk, circuit, proof, batch_id, start)
 
     def _synth_chunk(self, chunk: Chunk, batch_id: int):
@@ -166,15 +171,18 @@ class Groth16ChunkProver:
         if bad != -1:
             raise ValueError(f"constraint {bad} unsatisfied; witness invalid")
         digits_z = MSM.scalar_digits(system.z)
-        pre = {
-            "digits_z": digits_z,
-            "segs_z": MSM.build_segment_schedules(digits_z),
-        }
+        if self.mesh is None:
+            segs_z = MSM.build_segment_schedules(digits_z)
+        else:  # this rank's shard of the a, b1, l and b2 pools
+            from ..parallel.sharded import shard_schedules
+
+            segs_z = shard_schedules(digits_z, digits_z.shape[1], self.mesh)
+        pre = {"digits_z": digits_z, "segs_z": segs_z}
         with staging.side_stream(dev):
             pre["wm"] = P.witness_map_stage_native(system, dev)
-            MSM.upload_segment_schedules(pre["segs_z"], dev)
+            MSM.upload_segment_schedules(segs_z, dev)
             pre["uploads"] = staging.hand_over(
-                pre["wm"].words + [t for seg in pre["segs_z"]
+                pre["wm"].words + [t for seg in segs_z
                                    for t in seg["dev"].values()], dev)
         return circuit, system, pre
 
@@ -198,7 +206,7 @@ class Groth16ChunkProver:
                 # the worker ran the satisfaction check
                 proof = prove_synthesized(self.pk, system, batch_id=batch_id,
                                           check=False, precomputed=pre,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
                 out.append(self._chunk_proof(chunk, circuit, proof, batch_id,
                                              start))
         return out
