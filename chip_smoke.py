@@ -94,6 +94,23 @@ Phases (any failure exits non-zero and prints no result):
      byte-equal to the one-card proof, and merge_pairs (bucket_merge with
      K = 2) on the segment sums that run added up, G1 and G2 at width
      8,192, against bucket_merge_plain;
+  `sequencer`: the sequencer served on the card through its HTTP API
+     (sequencer/api.py start_api on port 0): the PipelineOrchestrator in
+     GROTH16 mode, proving on its own thread with Groth16Prover over
+     artifacts/l2_dummy_pk.npz and settling through
+     OnchainVerifyingSettler, under PipelineService; POST /transfer and
+     POST /dev/seal, then /status/stats until the batch settles; its proof
+     and SubmitBatch instruction bytes, roots and balances equal to
+     zelana_tpu_torch/testdata/pipeline_l2_proof.json (the JAX pipeline's).
+     Then POST /v2/batch/prove of a batch that makes two production
+     chunks (10 transfers, 5 withdrawals, 5 shielded commitments), the API's
+     Dispatcher sending them over HTTP to the chunk worker
+     (runtime/worker.py start_worker) with the production key (the
+     `production` phase's prover, else made here): both verify, their
+     roots chain, and their bytes equal prove_chunks in-process; and POST
+     /v2/ownership/prove equal to testdata/ownership_proof.json. The
+     prover kernels' launches on the served paths go to the kernels line
+     as `sequencer_launches`;
   8. `mesh`: ntt_cross (the sharded NTT's cross-rank stage) against its
      plain version at 2^19 elements, both halves of the butterfly, with
      and without the final 1/n, timed beside its bound; then four ranks
@@ -141,7 +158,7 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "engines", "services", "production", "mesh")
+          "engines", "services", "production", "sequencer", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -218,10 +235,14 @@ def main() -> int:
         tape = {"tape_launches": tape_runs, "tape_steps": step_times}
     if "services" in phases:
         phase_services(torch, dev, report)
+    chunk_prover, served = None, {}
     if "production" in phases:
         # step's launches come from the production keygen
-        launches["step"] = phase_production(torch, report,
-                                            "mesh" in phases)["step"]
+        keygen, chunk_prover = phase_production(torch, report,
+                                                "mesh" in phases)
+        launches["step"] = keygen["step"]
+    if "sequencer" in phases:
+        served = phase_sequencer(torch, report, chunk_prover)
     if "mesh" in phases:
         entry, launches["ntt_cross"] = phase_mesh(torch, dev, report)
         kernels.append(entry)
@@ -238,6 +259,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] == "step":  # and its launches on the tape MSMs
             k.update(tape)
+        if k["name"] in served:  # and on the sequencer's served paths
+            k["sequencer_launches"] = served[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
@@ -2200,13 +2223,240 @@ def phase_services(torch, dev, report) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the served front: sequencer pipeline, HTTP API, worker
+# ---------------------------------------------------------------------------
+
+SERVED_KERNELS = ("ntt_pass", "runscan", "bucket_tail")
+SERVED_CHUNK_BATCH = 11
+
+
+def http(port: int, method: str, path: str, body=None):
+    """(status, JSON answer) of one request to a local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    if data:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def served_launches(what: str) -> dict:
+    """The served path's launches of the prover's kernels, each nonzero."""
+    from zelana_tpu_torch.ops import cuda
+
+    got = {k: cuda.LAUNCHES[k] for k in SERVED_KERNELS}
+    if not all(got.values()):
+        raise AssertionError(f"{what}: a prover kernel was not launched: "
+                             f"{got}")
+    return got
+
+
+def phase_sequencer(torch, report, chunk_prover=None) -> dict:
+    """The sequencer served on the card, through its HTTP API: the L2
+    pipeline's batch proved and settled through the on-chain verifier gate
+    (byte-equal to testdata/pipeline_l2_proof.json); the production chunk
+    job through the worker (both chunks verified, chained and byte-equal to
+    prove_chunks in-process); /v2/ownership/prove equal to
+    testdata/ownership_proof.json. `chunk_prover`: the production phase's,
+    else made here. Returns the prover kernels' launches on the served
+    paths (the L2 batch and the chunk job)."""
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+    from zelana_tpu_torch.runtime.coordinator import ChunkProof, Dispatcher
+    from zelana_tpu_torch.runtime.ownership_api import OwnershipProver
+    from zelana_tpu_torch.runtime.worker import http_chunk_prover, start_worker
+    from zelana_tpu_torch.sequencer.account_tree import AccountState
+    from zelana_tpu_torch.sequencer.api import start_api
+    from zelana_tpu_torch.sequencer.batch import BatchConfig
+    from zelana_tpu_torch.sequencer.pipeline import (
+        PipelineConfig, PipelineOrchestrator, PipelineService, ProverMode)
+    from zelana_tpu_torch.sequencer.prover_service import Groth16Prover
+    from zelana_tpu_torch.sequencer.settler import OnchainVerifyingSettler
+
+    rep = report.setdefault("sequencer", {})
+    with open("zelana_tpu_torch/testdata/pipeline_l2_proof.json") as f:
+        vec = json.load(f)
+    with open("zelana_tpu_torch/testdata/ownership_proof.json") as f:
+        own_vec = json.load(f)
+
+    # 1. the L2 pipeline over HTTP; its first CUDA work runs on the
+    # pipeline's prove thread
+    pk = ProvingKey.load_npz(vec["key"])
+    settler = OnchainVerifyingSettler(pk.vk)
+    orch = PipelineOrchestrator(
+        config=PipelineConfig(batch=BatchConfig(max_age_secs=3600),
+                              prover_mode=ProverMode.GROTH16),
+        prover=Groth16Prover(pk, "cuda"), settler=settler, dev_mode=True)
+    for account, balance in vec["initial_accounts"]:
+        if balance:
+            orch._persist_account(bytes.fromhex(account),
+                                  AccountState(balance, 0))
+            orch.tree.insert(bytes.fromhex(account), AccountState(balance, 0))
+    service = PipelineService(orch).start()
+    server, port = start_api(orch)
+    try:
+        code, res = http(port, "POST", "/transfer", vec["transfer"])
+        if code != 200 or not res["accepted"]:
+            raise AssertionError(f"sequencer: transfer refused: {res}")
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.time()
+        code, sealed = http(port, "POST", "/dev/seal", {})
+        if sealed["sealed"] != vec["batch_id"]:
+            raise AssertionError(f"sequencer: sealed {sealed}")
+        batch = orch.batches.sealed[0]
+        while http(port, "GET", "/status/stats")[1]["batches_settled"] < 1:
+            if batch.error is not None:  # a failed prove or settlement
+                raise AssertionError(f"sequencer: batch failed: "
+                                     f"{batch.error}")
+            if time.time() - t0 > 300:
+                raise AssertionError("sequencer: the batch did not settle")
+            time.sleep(0.005)
+        rep["seal_to_settled_ms"] = 1e3 * (time.time() - t0)
+        rep["l2_launches"] = served_launches("sequencer L2 batch")
+        if batch.proof.proof_bytes.hex() != vec["proof_bytes"]:
+            raise AssertionError("sequencer: the served proof differs from "
+                                 "the recorded JAX vector")
+        if settler.inner.submitted[0].hex() != vec["submit_batch"]:
+            raise AssertionError("sequencer: the SubmitBatch instruction "
+                                 "differs from the recorded JAX vector")
+        got = {"roots": http(port, "GET", "/status/roots")[1],
+               "accounts": {h: http(port, "GET", f"/account/{h}")[1]
+                            for h in vec["accounts"]}}
+        for key, value in got.items():
+            if value != vec[key]:
+                raise AssertionError(f"sequencer: {key} {value} differ from "
+                                     f"the vector's {vec[key]}")
+        rep["proving_time_ms"] = batch.proof.proving_time_ms
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+    log(f"sequencer: the L2 batch {vec['batch_id']} settled "
+        f"{rep['seal_to_settled_ms']:.1f} ms after "
+        f"POST /dev/seal (proving_time_ms {rep['proving_time_ms']}: the "
+        f"first prove, key upload and NTT plan included); proof and "
+        f"SubmitBatch bytes equal to the JAX vector, roots and balances "
+        f"equal; launches {rep['l2_launches']}")
+
+    # 2. the production chunk job through the worker, and 3. ownership
+    cap, depth = PRODUCTION
+    if chunk_prover is None:
+        t0 = time.time()
+        chunk_prover = Groth16ChunkProver.setup(cap, depth, seed=0)
+        torch.cuda.synchronize()
+        log(f"sequencer: production key made in {time.time() - t0:.1f} s")
+    worker, wport = start_worker(chunk_prover)
+    api, port = start_api(
+        orch, dispatcher=Dispatcher(http_chunk_prover(
+            [f"http://127.0.0.1:{wport}"])),
+        chunk_capacity=cap, chunk_depth=depth,
+        ownership_prover=OwnershipProver())
+    accounts = [(pk_i, 10_000) for pk_i in range(1, 16)]
+    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i) for i in range(10)]
+    withdrawals = [(1 + i, 0xAA00 + i, 5 + i) for i in range(5)]
+    shielded = [1000 + i for i in range(5)]
+    try:
+        health = http(wport, "GET", "/health")
+        if health != (200, {"status": "ok", "capacity": list(cap),
+                            "tree_depth": depth}):
+            raise AssertionError(f"worker health: {health}")
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.time()
+        code, job = http(port, "POST", "/v2/batch/prove", {
+            "batch_id": SERVED_CHUNK_BATCH,
+            "accounts": [{"pk": a, "balance": b} for a, b in accounts],
+            "transfers": transfers, "withdrawals": withdrawals,
+            "shielded_commitments": shielded})
+        if code != 200:
+            raise AssertionError(f"/v2/batch/prove: {code} {job}")
+        status = f"/v2/batch/{job['job_id']}/status"
+        while (st := http(port, "GET", status)[1]["status"]) != "done":
+            if st != "running" or time.time() - t0 > 600:
+                raise AssertionError(f"chunk job: {st}")
+            time.sleep(0.01)
+        rep["chunk_job_ms"] = 1e3 * (time.time() - t0)
+        rep["chunk_launches"] = served_launches("sequencer chunk job")
+        result = http(port, "GET", f"/v2/batch/{job['job_id']}/proof")[1]
+        served = [ChunkProof(
+            chunk_index=c["index"], proof_bytes=bytes.fromhex(c["proof"]),
+            public_inputs=[int(v) for v in c["public_inputs"]],
+            proving_time_ms=c["proving_time_ms"],
+            public_witness=bytes.fromhex(c["public_witness"]))
+            for c in result["chunks"]]
+        rep["chunk_ms"] = [c.proving_time_ms for c in served]
+        if len(served) != 2:
+            raise AssertionError(f"the job made {len(served)} chunks, not 2")
+        for cp in served:
+            if not chunk_prover.verify_chunk(cp):
+                raise AssertionError(f"served chunk {cp.chunk_index} does "
+                                     f"not verify")
+        a, b = served[0].public_inputs, served[1].public_inputs
+        if a[1] != b[0] or a[3] != b[2]:
+            raise AssertionError("served chunk roots do not chain")
+        builder = ChunkWitnessBuilder(depth)
+        for a_i, bal in accounts:
+            builder.fund(a_i, bal)
+        chunks = Dispatcher.build_chunks_with_witness(
+            builder, transfers, withdrawals, shielded, capacity=cap,
+            pre_shielded_root=0)
+        t1 = time.time()
+        local = chunk_prover.prove_chunks(chunks, SERVED_CHUNK_BATCH)
+        rep["in_process_ms"] = 1e3 * (time.time() - t1)
+        for got, want in zip(served, local):
+            if (got.proof_bytes, got.public_witness) != (
+                    want.proof_bytes, want.public_witness):
+                raise AssertionError(f"served chunk {got.chunk_index} "
+                                     f"differs from prove_chunks")
+        log(f"sequencer: chunk job of 2 production chunks through the "
+            f"worker {rep['chunk_job_ms']:.1f} ms (POST to done), "
+            f"proving_time_ms per chunk {rep['chunk_ms']}; both verify, "
+            f"roots chain, byte-equal to prove_chunks in-process "
+            f"({rep['in_process_ms']:.1f} ms); launches "
+            f"{rep['chunk_launches']}")
+
+        t0 = time.time()
+        code, own = http(port, "POST", "/v2/ownership/prove", dict(zip(
+            ("spending_key", "value", "blinding", "position"),
+            own_vec["witness"])))
+        rep["ownership_ms"] = 1e3 * (time.time() - t0)
+        if code != 200:
+            raise AssertionError(f"/v2/ownership/prove: {code} {own}")
+        rep["ownership_proving_time_ms"] = own.pop("proving_time_ms")
+        if own != {k: v for k, v in own_vec.items()
+                   if k not in ("witness", "recorded_with")}:
+            raise AssertionError("/v2/ownership/prove differs from the "
+                                 "recorded JAX vector")
+        log(f"sequencer: /v2/ownership/prove {rep['ownership_ms']:.1f} ms "
+            f"(seed-0 keygen included; proving_time_ms "
+            f"{rep['ownership_proving_time_ms']}), equal to the vector")
+    finally:
+        for s in (api, worker):
+            s.shutdown()
+            s.server_close()
+    return {k: rep["l2_launches"][k] + rep["chunk_launches"][k]
+            for k in SERVED_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the production chunk, keygen and two pipelined proves
 # ---------------------------------------------------------------------------
 
 
-def phase_production(torch, report, mesh: bool = False) -> dict:
-    """Returns the kernel launches of the production keygen. `mesh`: prove
-    the first chunk again over a one-rank NCCL group."""
+def phase_production(torch, report, mesh: bool = False) -> tuple:
+    """Returns the kernel launches of the production keygen and the chunk
+    prover. `mesh`: prove the first chunk again over a one-rank NCCL
+    group."""
     from zelana_tpu_torch.groth16.keys import prepare_queries
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
@@ -2342,7 +2592,7 @@ def phase_production(torch, report, mesh: bool = False) -> dict:
     _z_schedules(prover, chunks[0], rep)
     if mesh:
         _world1_nccl(torch, prover, chunks[0], cps[0], rep)
-    return launches
+    return launches, prover
 
 
 def _world1_nccl(torch, prover, chunk, want, rep) -> None:

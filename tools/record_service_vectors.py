@@ -1,7 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
-        [cubic]
+        [cubic] [pipeline]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -18,10 +18,21 @@
   ``groth16.prove.prove`` of the cubic circuit (x^3 + x + 5 == 35, x = 3)
   as batch 7 with its seed-0 key (``groth16.setup.keygen``), and the
   SHA-256 of that key's compressed serialization.
+- ``zelana_tpu_torch/testdata/pipeline_l2_proof.json``: the served L2
+  batch. The JAX ``sequencer.pipeline.PipelineOrchestrator`` in GROTH16
+  mode, dev mode, proving with ``Groth16Prover`` over
+  ``artifacts/l2_dummy_pk.npz`` and settling through
+  ``OnchainVerifyingSettler``, runs under ``PipelineService`` and
+  ``sequencer.api.start_api``; account 0x01.. is funded with 1000 straight
+  into the store and the tree, then ``POST /transfer`` (0x01.. to 0x02..,
+  100, nonce 0) and ``POST /dev/seal``, and the batch settles. Recorded:
+  the batch id, the folded public inputs, the witness, the 256 proof
+  bytes, the SubmitBatch instruction bytes, and the roots and balances
+  after settlement.
 
-The port is held against these files by tests/test_torch_prover_service.py
-and tests/test_torch_sharded.py (on the CPU) and by chip_smoke.py's
-``services`` phase (on the card).
+The port is held against these files by tests/test_torch_prover_service.py,
+tests/test_torch_sharded.py and tests/test_torch_sequencer.py (on the CPU)
+and by chip_smoke.py's ``services`` and ``sequencer`` phases (on the card).
 """
 
 from __future__ import annotations
@@ -139,6 +150,128 @@ def record_cubic() -> None:
     _write("cubic_proof.json", out)
 
 
+PIPELINE_FUNDED = (b"\x01" * 32, 1000)
+PIPELINE_TRANSFER = {"from": "01" * 32, "to": "02" * 32, "amount": 100,
+                     "nonce": 0}
+
+
+def http(port: int, method: str, path: str, body=None):
+    """(status, JSON answer) of one request to a local API."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    if data:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_l2_batch(orch, start_api, service_cls, state_cls,
+                   timeout: float = 1800.0) -> dict:
+    """Serve the L2 dummy batch through a package's pipeline and API (the
+    orchestrator, `start_api`, PipelineService and AccountState given are
+    all the JAX package's or all the port's): fund, transfer, seal, wait
+    for settlement. Returns the settled batch and what the API answers."""
+    import time
+
+    pk, balance = PIPELINE_FUNDED
+    orch._persist_account(pk, state_cls(balance, 0))
+    orch.tree.insert(pk, state_cls(balance, 0))
+    service = service_cls(orch).start()
+    server, port = start_api(orch)
+    try:
+        code, res = http(port, "POST", "/transfer", PIPELINE_TRANSFER)
+        assert code == 200 and res["accepted"], res
+        t0 = time.time()
+        code, sealed = http(port, "POST", "/dev/seal", {})
+        assert code == 200 and sealed["sealed"] is not None, sealed
+        while True:
+            _, stats = http(port, "GET", "/status/stats")
+            if stats["batches_settled"] >= 1:
+                break
+            batch = orch.batches.sealed[0]
+            assert batch.error is None, batch.error
+            assert time.time() - t0 < timeout, "the batch did not settle"
+            time.sleep(0.05)
+        out = {"batch": orch.batches.sealed[0],
+               "roots": http(port, "GET", "/status/roots")[1],
+               "accounts": {h: http(port, "GET", f"/account/{h}")[1]
+                            for h in (PIPELINE_TRANSFER["from"],
+                                      PIPELINE_TRANSFER["to"])},
+               "batch_record": http(port, "POST", "/batch",
+                                    {"batch_id": sealed["sealed"]})[1]}
+    finally:
+        server.shutdown()
+        service.stop()
+    return out
+
+
+def record_pipeline() -> None:
+    from zelana_tpu.groth16.keys import ProvingKey
+    from zelana_tpu.sequencer.account_tree import AccountState
+    from zelana_tpu.sequencer.api import start_api
+    from zelana_tpu.sequencer.batch import BatchConfig
+    from zelana_tpu.sequencer.pipeline import (PipelineConfig,
+                                               PipelineOrchestrator,
+                                               PipelineService, ProverMode)
+    from zelana_tpu.sequencer.prover_service import Groth16Prover
+    from zelana_tpu.sequencer.settler import OnchainVerifyingSettler
+
+    key = "artifacts/l2_dummy_pk.npz"
+    pk = ProvingKey.load_npz(os.path.join(ROOT, key))
+    prover = Groth16Prover(pk)
+    settler = OnchainVerifyingSettler(pk.vk)
+    seen = {}
+    prove = prover.prove
+
+    def keep(inputs, witness):
+        seen["witness"] = witness
+        return prove(inputs, witness)
+
+    prover.prove = keep
+    orch = PipelineOrchestrator(
+        config=PipelineConfig(batch=BatchConfig(max_age_secs=3600),
+                              prover_mode=ProverMode.GROTH16),
+        prover=prover, settler=settler, dev_mode=True)
+    served = serve_l2_batch(orch, start_api, PipelineService, AccountState)
+    batch, witness = served["batch"], seen["witness"]
+    assert prover.verify(batch.proof)
+    inputs = batch.proof.public_inputs
+    out = {
+        "batch": "the L2 dummy batch served by the pipeline: 0x01.. funded "
+                 "with 1000, POST /transfer 0x01.. -> 0x02.. 100 nonce 0, "
+                 "POST /dev/seal",
+        "key": key,
+        "batch_id": batch.id,
+        "transfer": PIPELINE_TRANSFER,
+        "inputs": {k: v.hex() if isinstance(v, bytes) else v
+                   for k, v in vars(inputs).items()},
+        "transfers": [[t.signer_pubkey.hex(), t.to.hex(), t.amount, t.nonce]
+                      for t in witness.transactions],
+        "initial_accounts": [[a.hex(), bal] for a, bal
+                             in witness.initial_accounts.items()],
+        "shielded_commitments": [c.hex()
+                                 for c in witness.shielded_commitments],
+        "proof_bytes": batch.proof.proof_bytes.hex(),
+        "submit_batch": settler.inner.submitted[0].hex(),
+        "signature": batch.settlement_sig,
+        "roots": served["roots"],
+        "accounts": served["accounts"],
+        "batch_record": served["batch_record"],
+        "recorded_with": f"{CMD} pipeline (zelana_tpu.sequencer.pipeline."
+                         "PipelineOrchestrator in GROTH16 mode with "
+                         "Groth16Prover and OnchainVerifyingSettler, served "
+                         "by zelana_tpu.sequencer.api.start_api)",
+    }
+    _write("pipeline_l2_proof.json", out)
+
+
 def _write(name: str, obj: dict) -> None:
     with open(os.path.join(TESTDATA, name), "w") as f:
         json.dump(obj, f, indent=1)
@@ -147,10 +280,12 @@ def _write(name: str, obj: dict) -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["l2", "ownership", "cubic"]
+    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
         record_ownership()
     if "cubic" in which:
         record_cubic()
+    if "pipeline" in which:
+        record_pipeline()
