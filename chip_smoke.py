@@ -111,6 +111,24 @@ Phases (any failure exits non-zero and prints no result):
      /v2/ownership/prove equal to testdata/ownership_proof.json. The
      prover kernels' launches on the served paths go to the kernels line
      as `sequencer_launches`;
+  `cli`: the command line (python -m zelana_tpu_torch.cli). In process,
+     through cli.main: keygen --seed 0 (both files equal to the JAX
+     command's digests in testdata/cli_vectors.json), prove --pk <that
+     file> --batch-id 1 (equal to testdata/l2_dummy_proof.json), verify
+     (every check True), test --zk (every line PASS; its key, proof and
+     SubmitBatch equal to the JAX command's), deploy (the JAX descriptor),
+     genkey (mode 0600); their launches of ntt_pass, runscan, bucket_tail
+     and step go to the kernels line as `cli_launches`. As processes:
+     worker --capacity 8/4/4 --depth 32 through SwarmController, which
+     keygens itself and proves the served chunk job sent through
+     Dispatcher(http_chunk_prover), byte-equal to prove_chunks in-process
+     (the `production` phase's prover, else made here), its pid listed by
+     nvidia-smi; three nodes and a NodeNetworkCoordinator proof; dev
+     --ephemeral with ZL_PROVER_MODE=groth16 over the keygen's key, an
+     airdrop against it, SIGINT: exit 0, and its shutdown batch refused
+     on the host, not a kernel fault. Each command's seconds, the worker's
+     start-up and the chunk job's proving_time_ms are logged beside the
+     card;
   8. `mesh`: ntt_cross (the sharded NTT's cross-rank stage) against its
      plain version at 2^19 elements, both halves of the butterfly, with
      and without the final 1/n, timed beside its bound; then four ranks
@@ -158,7 +176,7 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "engines", "services", "production", "sequencer", "mesh")
+          "engines", "services", "production", "sequencer", "cli", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -243,6 +261,9 @@ def main() -> int:
         launches["step"] = keygen["step"]
     if "sequencer" in phases:
         served = phase_sequencer(torch, report, chunk_prover)
+    cli = {}
+    if "cli" in phases:
+        cli = phase_cli(torch, report, card, chunk_prover)
     if "mesh" in phases:
         entry, launches["ntt_cross"] = phase_mesh(torch, dev, report)
         kernels.append(entry)
@@ -261,6 +282,8 @@ def main() -> int:
             k.update(tape)
         if k["name"] in served:  # and on the sequencer's served paths
             k["sequencer_launches"] = served[k["name"]]
+        if k["name"] in cli:  # and on the command line's in-process runs
+            k["cli_launches"] = cli[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
@@ -2247,6 +2270,31 @@ def http(port: int, method: str, path: str, body=None):
         return e.code, json.loads(e.read())
 
 
+def served_chunk_batch():
+    """The batch of the served chunk job: 15 funded accounts, 10
+    transfers, 5 withdrawals and 5 shielded commitments (two production
+    chunks)."""
+    accounts = [(pk_i, 10_000) for pk_i in range(1, 16)]
+    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i) for i in range(10)]
+    withdrawals = [(1 + i, 0xAA00 + i, 5 + i) for i in range(5)]
+    shielded = [1000 + i for i in range(5)]
+    return accounts, transfers, withdrawals, shielded
+
+
+def served_chunks(depth: int, cap) -> list:
+    """The served chunk job's chunks with their witnesses."""
+    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+    accounts, transfers, withdrawals, shielded = served_chunk_batch()
+    builder = ChunkWitnessBuilder(depth)
+    for a_i, bal in accounts:
+        builder.fund(a_i, bal)
+    return Dispatcher.build_chunks_with_witness(
+        builder, transfers, withdrawals, shielded, capacity=cap,
+        pre_shielded_root=0)
+
+
 def served_launches(what: str) -> dict:
     """The served path's launches of the prover's kernels, each nonzero."""
     from zelana_tpu_torch.ops import cuda
@@ -2270,7 +2318,6 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
     from zelana_tpu_torch.groth16.keys import ProvingKey
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
-    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
     from zelana_tpu_torch.runtime.coordinator import ChunkProof, Dispatcher
     from zelana_tpu_torch.runtime.ownership_api import OwnershipProver
     from zelana_tpu_torch.runtime.worker import http_chunk_prover, start_worker
@@ -2361,10 +2408,7 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
             [f"http://127.0.0.1:{wport}"])),
         chunk_capacity=cap, chunk_depth=depth,
         ownership_prover=OwnershipProver())
-    accounts = [(pk_i, 10_000) for pk_i in range(1, 16)]
-    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i) for i in range(10)]
-    withdrawals = [(1 + i, 0xAA00 + i, 5 + i) for i in range(5)]
-    shielded = [1000 + i for i in range(5)]
+    accounts, transfers, withdrawals, shielded = served_chunk_batch()
     try:
         health = http(wport, "GET", "/health")
         if health != (200, {"status": "ok", "capacity": list(cap),
@@ -2404,12 +2448,7 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
         a, b = served[0].public_inputs, served[1].public_inputs
         if a[1] != b[0] or a[3] != b[2]:
             raise AssertionError("served chunk roots do not chain")
-        builder = ChunkWitnessBuilder(depth)
-        for a_i, bal in accounts:
-            builder.fund(a_i, bal)
-        chunks = Dispatcher.build_chunks_with_witness(
-            builder, transfers, withdrawals, shielded, capacity=cap,
-            pre_shielded_root=0)
+        chunks = served_chunks(depth, cap)
         t1 = time.time()
         local = chunk_prover.prove_chunks(chunks, SERVED_CHUNK_BATCH)
         rep["in_process_ms"] = 1e3 * (time.time() - t1)
@@ -2446,6 +2485,340 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
             s.server_close()
     return {k: rep["l2_launches"][k] + rep["chunk_launches"][k]
             for k in SERVED_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# the command line: in-process commands, then the commands that serve
+# ---------------------------------------------------------------------------
+
+CLI_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "step")
+CLI_CHUNK_BATCH = 12
+
+
+def run_cli(argv) -> tuple:
+    """(return code, printed lines, seconds) of one in-process command of
+    the port's CLI (zelana_tpu_torch.cli.main); its lines are logged."""
+    import contextlib
+    import io
+
+    from zelana_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    seconds = time.time() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return rc, lines, seconds
+
+
+def smi(query: str) -> list:
+    """Lines of `nvidia-smi --query-<query> --format=csv,noheader,nounits`."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-{query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()
+
+
+def phase_cli(torch, report, card: str, chunk_prover=None) -> dict:
+    """The port's command line (python -m zelana_tpu_torch.cli). In
+    process, through cli.main: `keygen --seed 0` (both files equal to the
+    JAX command's digests), `prove --pk <that file> --batch-id 1` (the
+    proof equal to testdata/l2_dummy_proof.json), `verify` of it (every
+    check True), `test --zk` (every line PASS, its key, proof and
+    SubmitBatch equal to testdata/cli_vectors.json), `deploy` (the JAX
+    descriptor) and `genkey` (mode 0600, keys that derive). As processes:
+    `worker` (8/4/4, depth 32) through SwarmController, proving the served
+    chunk job sent through Dispatcher(http_chunk_prover), byte-equal to
+    prove_chunks in-process (`chunk_prover`: the production phase's, else
+    made here); three `node`s and a NodeNetworkCoordinator proof; `dev
+    --ephemeral` over the keygen's key, an `airdrop`, SIGINT. Returns the
+    prover kernels' launches of the in-process commands."""
+    import base64
+    import hashlib
+    import shutil
+    import tempfile
+
+    from zelana_tpu_torch.groth16 import setup
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.sdk.keypair import ZelanaKeypair
+    from zelana_tpu_torch.sequencer import bridge_program as bp
+
+    rep = report.setdefault("cli", {"card": card})
+    secs = rep["seconds"] = {}
+    with open("zelana_tpu_torch/testdata/cli_vectors.json") as f:
+        vec = json.load(f)
+    with open("zelana_tpu_torch/testdata/l2_dummy_proof.json") as f:
+        l2 = json.load(f)
+    work = tempfile.mkdtemp(prefix="zelana_cli_")
+
+    def path(name):
+        return os.path.join(work, name)
+
+    def sha(name):
+        with open(path(name), "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def command(name, argv) -> list:
+        rc, lines, secs[name] = run_cli(argv)
+        if rc not in (0, None):
+            raise AssertionError(f"cli {name}: exit code {rc}")
+        return lines
+
+    try:
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        lines = command("keygen", ["keygen", "--seed", "0",
+                                   "--pk-out", path("proving.key"),
+                                   "--vk-out", path("verifying.key")])
+        want = vec["keygen"]
+        if (sha("proving.key"), sha("verifying.key"), lines[-1]) != (
+                want["pk_sha256"], want["vk_sha256"], want["vk_hash_line"]):
+            raise AssertionError("cli keygen: the key files differ from the "
+                                 "JAX command's")
+        keygen_step = cuda.LAUNCHES["step"]
+
+        lines = command("prove", ["prove", "--pk", path("proving.key"),
+                                  "--batch-id", "1",
+                                  "--out", path("l2_proof.json")])
+        with open(path("l2_proof.json")) as f:
+            proof = base64.b64decode(json.load(f)["proof"])
+        if ", verified: True, -> " not in lines[-1] or (
+                proof.hex() != l2["proof"]):
+            raise AssertionError("cli prove: the proof differs from "
+                                 "testdata/l2_dummy_proof.json")
+
+        with open(path("verifying.key"), "rb") as f:
+            vk_b64 = base64.b64encode(f.read()).decode()
+        with open(path("vk.json"), "w") as f:
+            json.dump({"verifying_key": vk_b64}, f)
+        lines = command("verify", [
+            "verify", "--proof", path("l2_proof.json"), "--vk",
+            path("vk.json"), "--inputs", ",".join(l2["public_inputs"])])
+        if len(lines) != 4 or not all(x.endswith(": True") for x in lines):
+            raise AssertionError(f"cli verify: {lines}")
+
+        seen = {"keys": [], "submits": []}
+        keygen, process = setup.keygen, bp.BridgeSVM.process
+
+        def keep_keygen(*a, **k):
+            seen["keys"].append(keygen(*a, **k))
+            return seen["keys"][-1]
+
+        def keep_submit(self, ix):
+            if ix.program_id == bp.BRIDGE_PROGRAM_ID and ix.data[:1] == b"\x03":
+                seen["submits"].append(ix.data)
+            return process(self, ix)
+
+        setup.keygen, bp.BridgeSVM.process = keep_keygen, keep_submit
+        try:
+            lines = command("test_zk", ["test", "--zk"])
+        finally:
+            setup.keygen, bp.BridgeSVM.process = keygen, process
+        want = vec["test_zk"]
+        (zk_pk,), (submit,) = seen["keys"], seen["submits"]
+        if lines[:-2] + lines[-1:] != want["lines"] or not lines[-2].startswith(
+                "  [PASS] SubmitBatch Groth16 CPI verified ("):
+            raise AssertionError(f"cli test --zk: {lines}")
+        if (hashlib.sha256(zk_pk.serialize_compressed()).hexdigest(),
+                submit.hex()) != (want["key_sha256"], want["submit_batch"]):
+            raise AssertionError("cli test --zk: the key or the SubmitBatch "
+                                 "differs from the JAX command's")
+
+        lines = command("deploy", ["deploy", "--out",
+                                   path("deployment.json")])
+        with open(path("deployment.json")) as f:
+            if f.read() != vec["deploy"]["descriptor"]:
+                raise AssertionError("cli deploy: the descriptor differs "
+                                     "from the JAX command's")
+        command("genkey", ["genkey", path("id.json")])
+        with open(path("id.json")) as f:
+            doc = json.load(f)
+        kp = ZelanaKeypair(bytes.fromhex(doc["signing_seed"]),
+                           bytes.fromhex(doc["privacy_sk"]))
+        if (oct(os.stat(path("id.json")).st_mode)[-3:] != "600"
+                or (kp.pubkey.hex(), kp.privacy_pk.hex())
+                != (doc["pubkey"], doc["privacy_pk"])):
+            raise AssertionError("cli genkey: mode or keys wrong")
+        torch.cuda.synchronize()
+        launches = {k: cuda.LAUNCHES[k] for k in CLI_KERNELS}
+        rep["cli_launches"] = launches
+        if not all(launches.values()):
+            raise AssertionError(f"cli: a kernel was not launched: "
+                                 f"{launches}")
+        log(f"{card}: cli in process: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+            + f"; keygen and deploy equal to the JAX command's, the prove "
+            f"and test --zk proofs equal to their vectors, verify True; "
+            f"launches {launches} ({keygen_step} step in keygen)")
+
+        _cli_worker(torch, rep, card, chunk_prover, work)
+        _cli_nodes(rep, card, work)
+        _cli_dev(rep, card, work, path("proving.key"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def _cli_worker(torch, rep, card, chunk_prover, work) -> None:
+    """`worker --capacity 8/4/4 --depth 32` as a process on the card: it
+    keygens the seed-0 production key itself, then proves the served
+    chunk job byte-equal to prove_chunks in-process. nvidia-smi lists its
+    pid; where a container's pid namespace shows every process as another
+    pid, it lists one more compute process while the worker runs than
+    before and after, and the card's used memory rose while this process
+    made no device work."""
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+    from zelana_tpu_torch.runtime.control import SwarmController
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+    from zelana_tpu_torch.runtime.worker import http_chunk_prover
+
+    cap, depth = PRODUCTION
+    ctl = SwarmController(log_dir=os.path.join(work, "swarm"),
+                          device="cuda")
+    try:
+        pids0, mem0 = smi("compute-apps=pid"), int(smi("gpu=memory.used")[0])
+        t0 = time.time()
+        svc = ctl.start_worker("worker", "/".join(map(str, cap)), depth,
+                               timeout=600)
+        rep["worker_startup_s"] = time.time() - t0
+        chunks = served_chunks(depth, cap)
+        dispatcher = Dispatcher(http_chunk_prover([svc.url]))
+        t0 = time.time()
+        job = dispatcher.submit_job(chunks, CLI_CHUNK_BATCH)
+        while (st := dispatcher.status(job)) != "done":
+            if st not in ("queued", "running") or time.time() - t0 > 600:
+                raise AssertionError(f"cli worker: the chunk job is {st}\n"
+                                     + ctl.logs("worker"))
+            time.sleep(0.01)
+        rep["chunk_job_ms"] = 1e3 * (time.time() - t0)
+        served = dispatcher.proofs(job)
+        rep["chunk_proving_time_ms"] = [c.proving_time_ms for c in served]
+        pids = smi("compute-apps=pid")
+        mem1 = int(smi("gpu=memory.used")[0])
+        pid = svc.process.pid
+        log(ctl.logs("worker"))
+        if chunk_prover is None:
+            chunk_prover = Groth16ChunkProver.setup(cap, depth, seed=0)
+        local = chunk_prover.prove_chunks(chunks, CLI_CHUNK_BATCH)
+        if len(served) != len(local) or any(
+                (a.proof_bytes, a.public_witness)
+                != (b.proof_bytes, b.public_witness)
+                for a, b in zip(served, local)):
+            raise AssertionError("cli worker: a chunk differs from "
+                                 "prove_chunks in-process")
+    finally:
+        ctl.stop()
+    pids2, mem2 = smi("compute-apps=pid"), int(smi("gpu=memory.used")[0])
+    rep["worker_memory_mib"] = [mem0, mem1, mem2]
+    rep["compute_app_pids"] = [pids0, pids, pids2]
+    if str(pid) in pids:
+        rep["worker_on_card"] = f"nvidia-smi lists pid {pid}"
+    elif (len(pids) == len(pids0) + 1 == len(pids2) + 1
+          and mem1 - mem0 > 256):
+        rep["worker_on_card"] = (
+            f"nvidia-smi lists {len(pids)} compute processes while the "
+            f"worker runs, {len(pids0)} before and after (pids {pids}: the "
+            f"pid namespace maps pid {pid}), and {mem1 - mem0} MiB more "
+            f"used memory")
+    else:
+        raise AssertionError(f"cli worker: pid {pid} not on the card "
+                             f"(nvidia-smi pids {pids0} / {pids} / {pids2}, "
+                             f"memory.used {mem0} / {mem1} / {mem2} MiB)")
+    log(f"{card}: cli worker (8/4/4, depth 32) up in "
+        f"{rep['worker_startup_s']:.1f} s (its keygen); chunk job of "
+        f"{len(served)} chunks {rep['chunk_job_ms']:.1f} ms, proving_time_ms "
+        f"{rep['chunk_proving_time_ms']}; byte-equal to prove_chunks "
+        f"in-process; {rep['worker_on_card']}")
+
+
+def _cli_nodes(rep, card, work) -> None:
+    """Three `node` processes and a 3-of-3 Schnorr proof over them."""
+    from zelana_tpu_torch.runtime.control import SwarmController
+    from zelana_tpu_torch.runtime.prover_node import NodeNetworkCoordinator
+
+    ctl = SwarmController(log_dir=os.path.join(work, "nodes"),
+                          device="cuda")
+    try:
+        t0 = time.time()
+        urls = [ctl.start_node(i + 1).url for i in range(3)]
+        rep["nodes_startup_s"] = time.time() - t0
+        t0 = time.time()
+        message = b"zelana cli swarm"
+        proof, pk = NodeNetworkCoordinator(urls).prove(2026 ** 7, message,
+                                                       k=3)
+        rep["node_proof_ms"] = 1e3 * (time.time() - t0)
+        if not proof.verify(pk, message) or proof.verify(pk, message + b"!"):
+            raise AssertionError("cli node: the swarm's proof does not "
+                                 "verify")
+    finally:
+        ctl.stop()
+    log(f"{card}: cli nodes: 3 up in {rep['nodes_startup_s']:.1f} s, a "
+        f"3-of-3 Schnorr proof in {rep['node_proof_ms']:.1f} ms, verified")
+
+
+def _cli_dev(rep, card, work, pk_path) -> None:
+    """`dev --ephemeral` as a process with ZL_PROVER_MODE=groth16 over the
+    keygen's key: it prints its Groth16Prover, takes an `airdrop`, and on
+    SIGINT seals and exits 0; its shutdown batch must not end in a kernel
+    fault."""
+    import signal
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ZL_PROVER_MODE="groth16", ZL_MOCK_PROVER="0",
+               ZL_PROVING_KEY=pk_path, PYTHONPATH=root, PYTHONUNBUFFERED="1")
+    env.pop("ZL_CONFIG", None)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zelana_tpu_torch.cli", "dev", "--ephemeral"],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True,
+        preexec_fn=lambda: signal.signal(signal.SIGINT, signal.SIG_DFL))
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    try:
+        while not any("sequencer: http://" in x for x in lines):
+            if proc.poll() is not None or time.time() - t0 > 300:
+                raise AssertionError(f"cli dev did not come up: {lines}")
+            time.sleep(0.05)
+        rep["dev_startup_s"] = time.time() - t0
+        if "prover: Groth16Prover (mode=groth16)\n" not in lines:
+            raise AssertionError(f"cli dev: {lines}")
+        url = [x for x in lines if "sequencer: http://" in x][0].rstrip(
+            ).split(": ", 1)[1]
+        rc, out, rep["airdrop_s"] = run_cli(
+            ["airdrop", "5a" * 32, "--amount", "1234", "--url", url])
+        if rc != 0:
+            raise AssertionError("cli airdrop did not land within 10 s")
+        t0 = time.time()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        rep["dev_sigint_to_exit_s"] = time.time() - t0
+        reader.join(timeout=5)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    text = "".join(lines)
+    for line in lines:
+        log(f"  dev | {line.rstrip()}")
+    last = [x for x in lines if x.startswith("last batch ")]
+    rep["dev_shutdown_batch"] = last[0].rstrip() if last else None
+    if rc != 0 or rep["dev_sigint_to_exit_s"] > 25:
+        raise AssertionError(f"cli dev: exit code {rc} "
+                             f"{rep['dev_sigint_to_exit_s']:.1f} s after "
+                             f"SIGINT")
+    if "CUDA" in text or not last or "prove failed: constraint" not in (
+            last[0]):
+        raise AssertionError(f"cli dev: the shutdown batch: {last}")
+    log(f"{card}: cli dev up in {rep['dev_startup_s']:.1f} s (torch import "
+        f"and the key's host decoding), airdrop landed in "
+        f"{rep['airdrop_s']:.2f} s, exit 0 {rep['dev_sigint_to_exit_s']:.1f} "
+        f"s after SIGINT; shutdown batch: {rep['dev_shutdown_batch']}")
 
 
 # ---------------------------------------------------------------------------

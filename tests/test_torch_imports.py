@@ -62,6 +62,17 @@ assert msm_fast.msm_g1([(1, 2)], [5], device="cpu") == g1.mul((1, 2), 5)
 from zelana_tpu_torch.parallel import comm, distributed, sharded
 
 assert distributed.init_distributed(device="cpu") is False
+
+# the command line and the L1 side, swarm and client SDK it drives
+from zelana_tpu_torch import cli
+from zelana_tpu_torch.groth16 import solana_vk
+from zelana_tpu_torch.runtime import control, prover_node
+from zelana_tpu_torch.sdk import client, keypair, mpc, zephyr
+from zelana_tpu_torch.sequencer import bridge_program, settler, ws
+from zelana_tpu_torch.tools import bench_udp, e2e, explorer
+
+assert cli.main(["test"]) == 0 and e2e.main() == 0
+assert settler.BridgeProgramSettler
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or (m.startswith("zelana_tpu") and
@@ -95,20 +106,30 @@ def test_cpu_prove_loads_no_jax(cubic_key):
 
 
 def test_sources_import_no_jax():
+    """No import of JAX or of the JAX package, and no string naming a
+    module of the JAX package (`"zelana_tpu.cli"` as a `-m` argument, an
+    `__import__` name): a subprocess or a dynamic import would load it."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|zelana_tpu)(\.|\s|$)",
                          re.M)
+    named = re.compile(r"[\"']zelana_tpu\.\w")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     hits = []
     for f in files:
         with open(f) as fh:
-            hits += [f"{f}: {m.group(0).strip()}"
-                     for m in pattern.finditer(fh.read())]
+            text = fh.read()
+        hits += [f"{f}: {m.group(0).strip()}"
+                 for m in pattern.finditer(text)]
+        hits += [f"{f}: {text[m.start():m.start() + 40]}"
+                 for m in named.finditer(text)]
     assert len(files) > 20 and hits == []
+    assert named.search('["-m", "zelana_tpu.cli", "node"]')
+    assert not named.search('["-m", "zelana_tpu_torch.cli", "node"]')
 
 
-def test_default_device_raises_without_cuda(cubic_key):
+def test_default_device_raises_without_cuda(cubic_key, tmp_path,
+                                            monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from zelana_tpu_torch.groth16.keys import ProvingKey, prepare_queries
@@ -136,6 +157,32 @@ def test_default_device_raises_without_cuda(cubic_key):
     from zelana_tpu_torch.ops import msm, msm_fast
     from zelana_tpu_torch.runtime.ownership_api import OwnershipProver
     from zelana_tpu_torch.sequencer.prover_service import Groth16Prover
+
+    from zelana_tpu_torch import cli
+    from zelana_tpu_torch.runtime.control import SwarmController
+    from zelana_tpu_torch.tools import bench_udp
+
+    key = tmp_path / "cubic.key"
+    key.write_bytes(pk.serialize_compressed())
+    monkeypatch.setenv("ZL_PROVER_MODE", "groth16")
+    monkeypatch.setenv("ZL_MOCK_PROVER", "0")
+    monkeypatch.setenv("ZL_PROVING_KEY", str(key))
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "out")
+    for argv in (["keygen", "--pk-out", out, "--vk-out", out],
+                 ["prove", "--pk", str(key), "--out", out],
+                 ["worker", "--capacity", "0/0/0", "--depth", "1"],
+                 ["dev", "--ephemeral"],
+                 ["test", "--zk"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert not os.path.exists(out)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_udp.main(["--count", "1"])
+    worker = SwarmController(log_dir=str(tmp_path / "swarm"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.start_worker("w", capacity="0/0/0", depth=1, timeout=120)
+    assert worker.status() == {}
 
     for call in (lambda: keygen(object()),
                  lambda: keygen_synthesized(object()),

@@ -1,7 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
-        [cubic] [pipeline]
+        [cubic] [pipeline] [cli]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -30,9 +30,20 @@
   bytes, the SubmitBatch instruction bytes, and the roots and balances
   after settlement.
 
+- ``zelana_tpu_torch/testdata/cli_vectors.json``: the JAX command line
+  (``zelana_tpu.cli.main``) in a temporary directory: the SHA-256 of the
+  two files ``keygen --seed 0`` writes and the vk hash it prints; the
+  descriptor ``deploy`` writes on the committed key; from ``test --zk``,
+  the SHA-256 of the ``_SevenInput`` proving key (seed 0), the verifier
+  account it stores, the 256 proof bytes and the SubmitBatch instruction
+  (caught on ``BridgeSVM.store_vk`` and ``BridgeSVM.process``), and its
+  PASS lines; and the proof ``prove --pk <keygen's file> --batch-id 1``
+  writes, which must be ``l2_dummy_proof.json``'s.
+
 The port is held against these files by tests/test_torch_prover_service.py,
-tests/test_torch_sharded.py and tests/test_torch_sequencer.py (on the CPU)
-and by chip_smoke.py's ``services`` and ``sequencer`` phases (on the card).
+tests/test_torch_sharded.py, tests/test_torch_sequencer.py and
+tests/test_torch_cli.py (on the CPU) and by chip_smoke.py's ``services``,
+``sequencer`` and ``cli`` phases (on the card).
 """
 
 from __future__ import annotations
@@ -272,6 +283,98 @@ def record_pipeline() -> None:
     _write("pipeline_l2_proof.json", out)
 
 
+def record_cli() -> None:
+    import base64
+    import contextlib
+    import hashlib
+    import io
+    import tempfile
+
+    from zelana_tpu import cli
+    from zelana_tpu.groth16 import setup
+    from zelana_tpu.sequencer import bridge_program as bp
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        print(out.getvalue(), end="")
+        return rc, out.getvalue().splitlines()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pk, vk = os.path.join(tmp, "proving.key"), os.path.join(tmp, "vk")
+        _, lines = run(["keygen", "--seed", "0", "--pk-out", pk,
+                        "--vk-out", vk])
+        keygen = {"seed": 0, "pk_sha256": sha(pk), "vk_sha256": sha(vk),
+                  "vk_hash_line": lines[-1]}
+
+        proof = os.path.join(tmp, "l2_proof.json")
+        _, lines = run(["prove", "--pk", pk, "--batch-id", "1",
+                        "--out", proof])
+        assert lines[-1].split(", ")[1] == "verified: True", lines
+        with open(proof) as f:
+            blob = base64.b64decode(json.load(f)["proof"]).hex()
+        with open(os.path.join(TESTDATA, "l2_dummy_proof.json")) as f:
+            assert blob == json.load(f)["proof"], "prove's proof is not " \
+                "l2_dummy_proof.json's: record it here"
+
+        desc = os.path.join(tmp, "deployment.json")
+        run(["deploy", "--out", desc])
+        with open(desc) as f:
+            descriptor = f.read()
+
+    seen = {"keys": [], "vk_accounts": [], "submits": []}
+    keygen_fn, store_vk, process = (setup.keygen, bp.BridgeSVM.store_vk,
+                                    bp.BridgeSVM.process)
+
+    def keep_keygen(*a, **k):
+        seen["keys"].append(keygen_fn(*a, **k))
+        return seen["keys"][-1]
+
+    def keep_vk(self, domain, vk_solana):
+        seen["vk_accounts"].append(vk_solana)
+        return store_vk(self, domain, vk_solana)
+
+    def keep_submit(self, ix):
+        if ix.program_id == bp.BRIDGE_PROGRAM_ID and ix.data[:1] == b"\x03":
+            seen["submits"].append(ix.data)
+        return process(self, ix)
+
+    setup.keygen, bp.BridgeSVM.store_vk = keep_keygen, keep_vk
+    bp.BridgeSVM.process = keep_submit
+    try:
+        rc, lines = run(["test", "--zk"])
+    finally:
+        setup.keygen, bp.BridgeSVM.store_vk = keygen_fn, store_vk
+        bp.BridgeSVM.process = process
+    assert rc == 0 and len(seen["submits"]) == 1, (rc, seen["submits"])
+    (zk_pk,), (account,), (submit,) = (seen["keys"], seen["vk_accounts"],
+                                       seen["submits"])
+    out = {
+        "keygen": keygen,
+        "prove": {"batch_id": 1, "proof": "l2_dummy_proof.json"},
+        "deploy": {"argv": ["deploy"], "descriptor": descriptor},
+        "test_zk": {
+            "batch_id": 1,
+            "key_sha256": hashlib.sha256(
+                zk_pk.serialize_compressed()).hexdigest(),
+            "vk_account": {k: [p.hex() for p in v] if k == "ic" else v.hex()
+                           for k, v in account.items()},
+            "proof": submit[57:57 + 256].hex(),
+            "submit_batch": submit.hex(),
+            "lines": lines[:-2] + lines[-1:],
+        },
+        "recorded_with": f"{CMD} cli (zelana_tpu.cli.main: keygen --seed 0, "
+                         "prove --pk <that file> --batch-id 1, deploy, "
+                         "test --zk)",
+    }
+    _write("cli_vectors.json", out)
+
+
 def _write(name: str, obj: dict) -> None:
     with open(os.path.join(TESTDATA, name), "w") as f:
         json.dump(obj, f, indent=1)
@@ -280,7 +383,7 @@ def _write(name: str, obj: dict) -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline"]
+    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline", "cli"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
@@ -289,3 +392,5 @@ if __name__ == "__main__":
         record_cubic()
     if "pipeline" in which:
         record_pipeline()
+    if "cli" in which:
+        record_cli()

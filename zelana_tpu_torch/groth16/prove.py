@@ -95,6 +95,23 @@ def prove(pk: ProvingKey, circuit, batch_id: int = 0, check: bool = True,
                              dev, mesh)
 
 
+def check_fits(pk: ProvingKey, num_instance: int, num_vars: int,
+               num_constraints: int) -> None:
+    """Raise on the host, before any launch, unless the witness has the
+    key's shape: its instance count, variable count (the a, b1, b2 and l
+    queries are indexed by witness position) and domain (the h query holds
+    m - 1 points). A witness of another length would reach the MSM kernels
+    against query pools of the key's length; the JAX package raises an
+    IndexError there, after its witness map has run."""
+    m = Domain.new(num_constraints + num_instance).size
+    got = (num_instance, num_vars, m - 1)
+    want = (len(pk.vk.gamma_abc_g1), len(pk.a_query), len(pk.h_query))
+    if got != want:
+        raise ValueError(
+            f"key / witness mismatch: the witness has (instances, "
+            f"variables, h terms) = {got}, the key {want}")
+
+
 def _synthesize_dsl(circuit, check: bool):
     """Host stage of a DSL prove: synthesis, matrices and assignment."""
     from ..r1cs.system import ConstraintSystem
@@ -112,7 +129,7 @@ def _synthesize_dsl(circuit, check: bool):
 def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
                       dev: torch.device, mesh=None) -> Proof:
     A, B, C, z, num_instance = parts
-    assert len(pk.vk.gamma_abc_g1) == num_instance, "key / circuit mismatch"
+    check_fits(pk, num_instance, len(z), len(A))
 
     # ark-groth16 `prove`: r then s, each one `Fr::rand` draw
     rng = StdRng.seed_from_u64(batch_id)
@@ -308,7 +325,7 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
             raise ValueError(
                 f"constraint {bad} unsatisfied; witness invalid")
     num_instance = system.num_instance
-    assert len(pk.vk.gamma_abc_g1) == num_instance, "key / circuit mismatch"
+    check_fits(pk, num_instance, system.num_vars, system.num_constraints)
 
     rng = StdRng.seed_from_u64(batch_id)
     r = rand_fp(rng, FR)

@@ -11,11 +11,8 @@ Mirrors core/src/sequencer/settlement/settler.rs:
   so submission is pluggable).
 - OnchainVerifyingSettler runs the deployed verifier's algorithm
   (onchain_verifier.py) before it accepts; SunspotSettler takes the
-  388-byte chunk proofs.
-
-The JAX package's ``BridgeProgramSettler`` drives its in-process bridge
-program model (``sequencer/bridge_program.py``); neither is in the port
-yet.
+  388-byte chunk proofs; BridgeProgramSettler drives the in-process bridge
+  program model (bridge_program.py).
 """
 
 from __future__ import annotations
@@ -232,3 +229,85 @@ class SunspotSettler:
             return self.submit_sunspot(NoirProofData.from_batch_proof(proof))
         return self.groth16.submit(proof)
 
+
+class BridgeProgramSettler:
+    """Settler driving the in-process bridge program model -- the
+    litesvm-style REAL settlement leg: SubmitBatch goes through the bridge
+    instruction processor (sequence checks, public-input cross-checks, CPI
+    into the verifier program) and finalized withdrawals execute as
+    batched WithdrawAttested instructions moving actual vault lamports
+    (settler.rs:694-860; nullifier = the withdrawal tx hash)."""
+
+    def __init__(self, svm, domain: bytes, sequencer: bytes):
+        from .bridge_program import VERIFIER_PROGRAM_ID, derive_config_pda, \
+            derive_vk_pda
+
+        self.svm = svm
+        self.domain = domain
+        self.sequencer = sequencer
+        self.config_pda, _ = derive_config_pda(domain)
+        self.vk_pda, _ = derive_vk_pda(domain)
+        self.verifier = VERIFIER_PROGRAM_ID
+
+    def store_vk(self, vk):
+        from .onchain_verifier import vk_to_solana_account
+
+        return self.svm.store_vk(self.domain, vk_to_solana_account(vk))
+
+    def submit(self, proof: BatchProof) -> SettlementResult:
+        from .bridge_program import (
+            BRIDGE_PROGRAM_ID,
+            AccountMeta,
+            Instruction,
+            decode_config,
+        )
+
+        prev = decode_config(
+            self.svm.account(self.config_pda).data)["batch_index"]
+        data = build_submit_batch_instruction(proof, prev_idx=prev)
+        self.svm.process(Instruction(
+            program_id=BRIDGE_PROGRAM_ID,
+            accounts=[
+                AccountMeta(self.sequencer, is_signer=True),
+                AccountMeta(self.config_pda, is_writable=True),
+                AccountMeta(self.verifier),
+                AccountMeta(self.vk_pda),
+            ],
+            data=data,
+        ))
+        sig = hashlib.blake2b(data, digest_size=32).hexdigest()
+        self.svm.slot = getattr(self.svm, "slot", 0) + 1
+        return SettlementResult(signature=sig, slot=self.svm.slot)
+
+    def execute_withdrawals(self, withdrawals) -> List[SettlementResult]:
+        """withdrawals: iterable of (recipient32, amount, tx_hash32);
+        one WithdrawAttested each (replay-guarded by the nullifier PDA)."""
+        from .bridge_program import (
+            BRIDGE_PROGRAM_ID,
+            AccountMeta,
+            Instruction,
+            derive_nullifier_pda,
+            derive_vault_pda,
+        )
+
+        vault_pda, _ = derive_vault_pda(self.domain)
+        results = []
+        for recipient, amount, tx_hash in withdrawals:
+            nf_pda, _ = derive_nullifier_pda(self.domain, tx_hash)
+            data = build_withdraw_attested_instruction(
+                recipient, amount, tx_hash)
+            self.svm.process(Instruction(
+                program_id=BRIDGE_PROGRAM_ID,
+                accounts=[
+                    AccountMeta(self.sequencer, is_signer=True),
+                    AccountMeta(self.config_pda),
+                    AccountMeta(vault_pda, is_writable=True),
+                    AccountMeta(recipient, is_writable=True),
+                    AccountMeta(nf_pda, is_writable=True),
+                    AccountMeta(b"\x00" * 32),
+                ],
+                data=data,
+            ))
+            sig = hashlib.blake2b(data, digest_size=32).hexdigest()
+            results.append(SettlementResult(signature=sig, slot=0))
+        return results
