@@ -11,8 +11,12 @@ Phases (any failure exits non-zero and prints no result):
      source, in parallel), with ptxas register and spill counts;
   2. `kernels`: each kernel against its plain PyTorch version on the card,
      exact equality: mont_mul (2^16 Fr, Fq and BLS12-381 Fr, with 0, 1 and
-     p - 1, and at the shapes Poseidon's rounds give it: 1, 3 and 9 times
-     2^15 lanes of BN254 Fr, 2^12 of BN254 and BLS12-381 Fr); ntt_pass,
+     p - 1; checked and timed, but launched on no path, so out of the
+     kernels line); poseidon (BN254 8/56 and 8/57, BLS12-381 8/57, the
+     permute mode and sponges over 1, 2, 3 and 5 columns at 2^12 and 4,097
+     states, and the path's two-column BN254 8/56 sponge at 2^15, with 0, 1
+     and p - 1; timed over two columns at 2^15, 2^12 and 2^20 beside its
+     bound); ntt_pass,
      the NTT's pass kernel, in the five kinds of transform (ntt, intt,
      coset_ntt, coset_intt, the witness map's
      quotient) at 2^13 and 2^21 by the launcher's split and by every
@@ -35,7 +39,10 @@ Phases (any failure exits non-zero and prints no result):
   `hashes`: hash2_batch at 2^20 leaves (one level of a 2^21-leaf account
      tree), hash_n_batch with 3 and 5 columns at 2^16, Poseidon BN254 8/56
      over two columns at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12; 256
-     sampled outputs of each equal to the host hashes; launches and times;
+     sampled outputs of each equal to the host hashes; launches (one
+     poseidon launch a Poseidon hash and no mont_mul, asserted) and times;
+     ten 2^15 Poseidon hashes under torch.profiler, no device kernel but
+     poseidon_kernel allowed;
   `inversion`: mont_batch_inv_nested over Fr at 2^20 and 20,480 and over
      Fq at 2^20 with seeded zeros, and over Fr on the copy path (a ragged
      20,403, a column slice and a misaligned contiguous view at 20,480):
@@ -149,7 +156,7 @@ Phases (any failure exits non-zero and prints no result):
   9. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen and, apart, on the
      tape MSMs, jac_add / jac_double on the Jacobian MSMs, mimc_permute
-     and mont_mul (Poseidon's rounds) on the hashes, inv_fwd / inv_bwd /
+     and poseidon on the hashes, inv_fwd / inv_bwd /
      inv_base on the inversions, ntt_cross on the mesh path), the card,
      the result line.
 
@@ -171,6 +178,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 # 1.98 GHz boost (Hopper SM layout); the data sheet gives no int32 rate
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MUL_OPS = 2 * 2 * 8 * 8 + 8  # one 8x32-bit CIOS: 128 wide products, 8 m's
+SQR_OPS = 2 * 36 + 2 * 8 * 8 + 8  # a squaring: 36 distinct word products
 
 CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
@@ -464,7 +472,6 @@ def phase_kernels(torch, dev, report) -> list:
 
     from zelana_tpu_torch.curves import g1 as G1, g2 as G2
     from zelana_tpu_torch.fields.bn254 import R as FR
-    from zelana_tpu_torch.hashes import poseidon as P
     from zelana_tpu_torch.ops import curve_kernels as CK
     from zelana_tpu_torch.ops import field_kernels as FK
     from zelana_tpu_torch.ops import limbs as L
@@ -513,26 +520,17 @@ def phase_kernels(torch, dev, report) -> list:
         f"{bls_bound[0]:.4f} ms ({bls_bound[1]})")
     report["mont_mul_bls12_381_2_16"] = {"ms": bls_ms,
                                          "bound_ms": bls_bound[0]}
-    # the shapes Poseidon's rounds give it on the hashes path, where its
-    # launches are counted: (8, lanes) for a partial round's s-box,
-    # (8, 3 lanes) for a full round's, (8, 9 lanes) for the MDS products;
-    # 2^15 lanes of BN254 8/56, 2^12 of BN254 8/57 and BLS12-381 8/57
-    for name, cfg, lanes in (("BN254 8/56", P.bn254_config(), 1 << 15),
-                             ("BN254 8/57", P.bn254_config_57(), 1 << 12),
-                             ("BLS12-381 8/57", P.bls12_381_config(),
-                              1 << 12)):
-        spec = L.FieldSpec(cfg.modulus)
-        for width in (1, cfg.width, cfg.width ** 2):
-            a, b = (rand_words(torch, rng, spec.modulus >> 224,
-                               width * lanes, dev) for _ in range(2))
-            err = max(err, check(
-                f"mont_mul Poseidon {name} (8, {width} x {lanes})",
-                FK.mont_mul(a, b, spec), FK.mont_mul_plain(a, b, spec)))
     bms, by = bound_ms(2 * n * 96, 2 * n * MUL_OPS)
-    kernels.append(_entry("mont_mul", "zelana_tpu_torch/csrc/field_kernels.cu",
-                          "zelana_tpu/ops/pallas_field.py:136", err, ms,
-                          plain, bms, by))
+    # no path launches mont_mul: the products that reach
+    # pallas_field._mont_mul_call on a TPU run inside the poseidon, ntt_pass
+    # and ntt_cross kernels, whose entries carry them; its checks and times
+    # stay here, out of the kernels line
+    report["mont_mul"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                          "bound_ms": bms, "bound_by": by}
+    log(f"  mont_mul 2^16 Fr + Fq: {ms:.4f} ms, {plain:.3f} ms plain, bound "
+        f"{bms:.4f} ms ({by}); launched on no path")
 
+    kernels.append(_poseidon_kernel(torch, dev, rng, check, report))
     kernels.append(_ntt_kernel(torch, dev, rng, check, report))
 
     # runscan, four variants, on a real schedule over a 2^12-point pool;
@@ -893,6 +891,140 @@ def _mimc_kernel(torch, dev, rng, check) -> list:
                    by)]
 
 
+POSEIDON_CFGS = (("BN254 8/56", "bn254_config"),
+                 ("BN254 8/57", "bn254_config_57"),
+                 ("BLS12-381 8/57", "bls12_381_config"))
+
+
+def poseidon_products(cfg) -> int:
+    """Montgomery products of one permutation as the rounds are written: a
+    full round three s-boxes of three products and the 9 MDS products, a
+    partial round one s-box and the 9 (816 at 8/56, 828 at 8/57)."""
+    return 18 * cfg.full_rounds + 12 * cfg.partial_rounds
+
+
+def poseidon_least_ops(cfg) -> int:
+    """int32 operations of the fewest products a two-column hash needs
+    (one permutation from a zero capacity lane; lane 1 out), with the same
+    output: a full round's three s-boxes (two squarings and a product
+    each) and its dense 9-product MDS; a partial round in the sparse-MDS
+    form (the Poseidon paper's appendix B): one s-box and 2 x 3 - 1 = 5
+    products, the dense rest folded into the full round before; no s-box
+    for the first round's lane 0 (a constant); the last MDS three
+    products (lane 1 alone). A squaring costs SQR_OPS, a product MUL_OPS:
+    158 squarings and 425 products at 8/56 (0.67 of the written form's
+    operations)."""
+    squarings = 2 * (3 * cfg.full_rounds + cfg.partial_rounds) - 2
+    products = 12 * cfg.full_rounds + 6 * cfg.partial_rounds - 1 - 6
+    return squarings * SQR_OPS + products * MUL_OPS
+
+
+def poseidon_work(cfg, n: int, least: bool = True):
+    """(bytes, int32 operations) of a two-column Poseidon hash of n states:
+    two columns read and one written, the constants read once; the
+    operations poseidon_least_ops's, or (least=False) the written form's
+    poseidon_products x MUL_OPS."""
+    from zelana_tpu_torch.ops import field_kernels as FK
+
+    rows = FK.poseidon_rows(cfg.full_rounds, cfg.partial_rounds)
+    ops = (poseidon_least_ops(cfg) if least
+           else poseidon_products(cfg) * MUL_OPS)
+    return 32 * 3 * n + 32 * rows, ops * n
+
+
+def _poseidon_kernel(torch, dev, rng, check, report) -> dict:
+    """poseidon_kernel against its plain versions on the card, whole
+    outputs: the three configurations, the permute mode and sponges over
+    1, 2, 3 and 5 columns, at 2^12 and a ragged 4,097 states with 0, 1 and
+    p - 1 among the inputs (the plain versions run once at 4,097; the
+    2^12 outputs hold to their first 4,096 states). Timed over two
+    columns (the hashes path's) at 2^15 (8/56, PERF.md's hashes/s
+    metric; there also held whole to the plain run that is timed), 2^12
+    (8/57, both fields) and 2^20 (8/56), by CUDA events and by device
+    time, beside the bound of the fewest operations (bound_ms) and that of
+    the rounds as written (written_bound_ms)."""
+    from zelana_tpu_torch.hashes import poseidon as P
+    from zelana_tpu_torch.hashes import poseidon_batch as PB
+    from zelana_tpu_torch.ops import field_kernels as FK
+    from zelana_tpu_torch.ops import limbs as L
+
+    rep = report["poseidon"] = {}
+    err, wide = 0, 4097
+    for name, fn in POSEIDON_CFGS:
+        cfg = getattr(P, fn)()
+        spec = L.FieldSpec(cfg.modulus)
+        args = (PB._device_tables(cfg, dev), cfg.full_rounds,
+                cfg.partial_rounds, spec)
+        edge = L.to_tensor(L.to_words([0, 1, spec.modulus - 1]), dev)
+        cols = [rand_words(torch, rng, spec.modulus >> 224, wide, dev)
+                for _ in range(5)]
+        for c in cols:
+            c[:, :3] = edge
+        state = torch.stack(cols[2:])
+        for k in (0, 1, 2, 3, 5):
+            if k == 0:
+                want = FK.poseidon_permute_plain(state, *args)
+            else:
+                want = FK.poseidon_sponge_plain(cols[:k], *args)
+            for n in (1 << 12, wide):
+                if k == 0:
+                    got = FK.poseidon_permute(
+                        state[:, :, :n].contiguous(), *args)
+                else:
+                    got = FK.poseidon_sponge(
+                        [c[:, :n].contiguous() for c in cols[:k]], *args)
+                err = max(err, check(
+                    f"poseidon {name} {'permute' if k == 0 else f'{k} cols'}"
+                    f" n {n}", got, want[..., :n]))
+    times = {}
+    for label, fn, n in (("8/56 2^15", "bn254_config", 1 << 15),
+                         ("8/57 2^12 BN254", "bn254_config_57", 1 << 12),
+                         ("8/57 2^12 BLS12-381", "bls12_381_config", 1 << 12),
+                         ("8/56 2^20", "bn254_config", 1 << 20)):
+        cfg = getattr(P, fn)()
+        spec = L.FieldSpec(cfg.modulus)
+        args = (PB._device_tables(cfg, dev), cfg.full_rounds,
+                cfg.partial_rounds, spec)
+        edge = L.to_tensor(L.to_words([0, 1, spec.modulus - 1]), dev)
+        cols = [rand_words(torch, rng, spec.modulus >> 224, n, dev)
+                for _ in range(2)]
+        cols[0][:, :3] = edge
+        cols[1][:, 3:6] = edge
+        bms, by = bound_ms(*poseidon_work(cfg, n))
+        written = bound_ms(*poseidon_work(cfg, n, least=False))[0]
+        t = {"ms": cuda_ms(torch, lambda: FK.poseidon_sponge(cols, *args),
+                           20),
+             "device_ms": device_ms(torch, lambda: FK.poseidon_sponge(
+                 cols, *args), 20, 1),
+             "bound_ms": bms, "bound_by": by, "written_bound_ms": written}
+        if label == "8/56 2^15":
+            plain = []
+            t["plain_ms"] = cuda_ms(torch, lambda: plain.append(
+                FK.poseidon_sponge_plain(cols, *args)), 1, False)
+            err = max(err, check(f"poseidon {label} 2 cols (the path's)",
+                                 FK.poseidon_sponge(cols, *args), plain[0]))
+        t["share_of_bound"] = bms / t["device_ms"]
+        t["share_of_written_bound"] = written / t["device_ms"]
+        times[label] = t
+        log(f"  poseidon {label}, 2 cols: {t['ms']:.4f} ms by events, "
+            f"{t['device_ms']:.4f} ms device time, bound {bms:.4f} ms "
+            f"({by}, {t['share_of_bound']:.0%}; the rounds as written "
+            f"{written:.4f} ms, {t['share_of_written_bound']:.0%})")
+    rep.update(times)
+    main = times["8/56 2^15"]
+    entry = _entry("poseidon", "zelana_tpu_torch/csrc/field_kernels.cu",
+                   "zelana_tpu/hashes/poseidon_jax.py:49 (on a TPU "
+                   "pallas_field.py:136 per product)", err, main["ms"],
+                   main["plain_ms"], main["bound_ms"], main["bound_by"])
+    entry["device_ms"] = main["device_ms"]
+    entry["written_bound_ms"] = main["written_bound_ms"]
+    entry["other_shapes"] = {k: {"ms": v["ms"], "device_ms": v["device_ms"],
+                                 "bound_ms": v["bound_ms"],
+                                 "written_bound_ms": v["written_bound_ms"]}
+                             for k, v in times.items() if k != "8/56 2^15"}
+    return entry
+
+
 def fermat_muls(modulus: int) -> int:
     """Products of the left-to-right square-and-multiply for a^(p-2)."""
     e = modulus - 2
@@ -1192,9 +1324,17 @@ def phase_hashes(torch, dev, report) -> dict:
                           if v != before[k]}
         rep[name] = {"first_call_s": time.time() - t0,
                      "launches": launches[name]}
-    # mont_mul's launches on the main path are Poseidon's rounds
-    path = {k: cuda.LAUNCHES[k] for k in ("mimc_permute", "mont_mul")}
+    path = {k: cuda.LAUNCHES[k] for k in ("mimc_permute", "poseidon")}
     log(f"launches on the hashing path: {dict(cuda.LAUNCHES)}")
+    # a Poseidon hash is one launch: every round of every permutation in
+    # the kernel, no mont_mul and no torch op around it
+    for name, _, _, _, _ in runs:
+        if name.startswith("poseidon") and launches[name] != {"poseidon": 1}:
+            raise AssertionError(f"{name}: launches {launches[name]}, "
+                                 f"expected one poseidon launch")
+    if cuda.LAUNCHES["mont_mul"]:
+        raise AssertionError(f"the hashing path launched mont_mul "
+                             f"{cuda.LAUNCHES['mont_mul']} times")
 
     for (name, fn, cols, spec, host), out in zip(runs, outs):
         n = out.shape[1]
@@ -1212,6 +1352,9 @@ def phase_hashes(torch, dev, report) -> dict:
         log(f"  {name}: {ms:.3f} ms on the card ({n / ms * 1e3:.4g} hashes/s),"
             f" first call {rep[name]['first_call_s']:.2f} s, launches "
             f"{launches[name]}; 256 samples equal to the host hash")
+    _poseidon_profile(torch, next(fn for name, fn, *_ in runs
+                                  if name.startswith("poseidon bn254 8/56")),
+                      rep)
     x = leaves[0]
     rc = MB._round_constants(dev)
     # the kernel against its plain version, whole outputs, at the path's
@@ -1231,6 +1374,36 @@ def phase_hashes(torch, dev, report) -> dict:
     log(f"  mimc_permute 2^20, 91 rounds: {ms:.3f} ms, bound {bms:.3f} ms "
         f"({by})")
     return path
+
+
+def _poseidon_profile(torch, fn, rep, reps: int = 10) -> None:
+    """`reps` runs of fn (the 2^15 BN254 8/56 Poseidon hash) back to back
+    under torch.profiler; the run fails if any device kernel but
+    poseidon_kernel ran (a window that shows none of it is profiled again,
+    up to five times)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profiled(torch) as prof:
+            for _ in range(reps):
+                fn()
+        events = device_events(prof, empty_ok=True)
+        ours = [e for e in events if "poseidon_kernel" in e.key]
+        if ours:
+            break
+    others = [e.key for e in events if "poseidon_kernel" not in e.key]
+    seen = sum(e.count for e in ours)
+    per = sum(e.self_device_time_total for e in ours) / 1e3 / max(seen, 1)
+    rep["profile poseidon 8/56 2^15"] = {
+        "hashes": reps, "kernels_seen": seen, "per_hash_ms": per,
+        "others": others}
+    log(f"  {reps} Poseidon 8/56 2^15 hashes under the profiler: "
+        f"poseidon_kernel x{seen}, {per:.4f} ms of device time a hash; "
+        f"other device kernels: {others or 'none'}")
+    if others or not seen:
+        raise AssertionError(f"Poseidon hash: device kernels other than "
+                             f"poseidon_kernel {others}, or none of it "
+                             f"seen ({seen})")
 
 
 def phase_inversion(torch, dev, report) -> dict:

@@ -8,8 +8,9 @@ two kernels (six threads per complete add, four barriers an add), the
 safegcd base inverse over the three fields, inv_fwd in both of its thread
 mappings (a thread a chain behind a cp.async ring; a prefix scan over a
 thread per element), inv_bwd in both of its (two threads a chain behind a
-cp.async ring; a suffix scan), both on inputs with zeros, and the NTT pass
-kernel (ntt_kernels.cu) pass by pass in every kind of transform, the
+cp.async ring; a suffix scan), both on inputs with zeros, the Poseidon
+kernel in its permute and sponge modes over the three configurations, and
+the NTT pass kernel (ntt_kernels.cu) pass by pass in every kind of transform, the
 sharded NTT's cross-rank stage (ntt_cross_kernel), and the Jacobian point
 kernels (jac_kernels.cu) on every case of point_add's mask dispatch. This holds
 the kernels' indexing, their barriers and their shared memory before a
@@ -25,6 +26,8 @@ import pytest
 import torch
 
 from zelana_tpu_torch.fields.bn254 import P
+from zelana_tpu_torch.hashes import poseidon as TP
+from zelana_tpu_torch.hashes import poseidon_batch as PB
 from zelana_tpu_torch.ops import curve_kernels as CK
 from zelana_tpu_torch.ops import curve_ops as CO
 from zelana_tpu_torch.ops import cuda
@@ -268,6 +271,71 @@ def test_emulated_inv_bwd_ring_below_threshold(flib, n):
                            prefix.data_ptr(), tinv.data_ptr(),
                            got.data_ptr(), n, 1, None) == 0
     assert torch.equal(got, FK.inv_bwd_plain(a, prefix, tinv, spec))
+
+
+POSEIDON = {"bn254_8_56": TP.bn254_config, "bn254_8_57": TP.bn254_config_57,
+            "bls12_381_8_57": TP.bls12_381_config}
+
+
+def _poseidon(flib, cfg, cols, state, n: int):
+    """zt_poseidon on host memory -> (return code, out)."""
+    spec = L.FieldSpec(cfg.modulus)
+    consts = PB._device_tables(cfg, torch.device("cpu"))
+    out = torch.empty((3, 8, n) if state is not None else (8, n),
+                      dtype=torch.int32)
+    ptrs = (ctypes.c_void_p * max(len(cols), 1))(
+        *[c.data_ptr() for c in cols])
+    rc = flib.zt_poseidon(FK._field_id(spec), ptrs, len(cols),
+                          None if state is None else state.data_ptr(),
+                          out.data_ptr(), n, consts.data_ptr(),
+                          cfg.full_rounds // 2, cfg.partial_rounds, None)
+    return rc, out, consts
+
+
+@pytest.mark.parametrize("k", [0, 2, 5])
+@pytest.mark.parametrize("name", list(POSEIDON))
+def test_emulated_poseidon_matches_plain(flib, name, k):
+    """poseidon_kernel at n = 150 (a whole block of 128 threads and a
+    partial one) against the plain versions: k = 0 permutes a (3, 8, n)
+    state, k = 2 hashes two columns (the path's), k = 5 five (three
+    permutations, the last after one column). The inputs hold 0, 1 and
+    p - 1; every output word compared."""
+    cfg = POSEIDON[name]()
+    spec = L.FieldSpec(cfg.modulus)
+    n = 150
+    rng = np.random.default_rng(131 + 8 * k + len(name))
+    edges = L.to_tensor(L.to_words([0, 1, spec.modulus - 1]), "cpu")
+    words = [_field_words(rng, spec, n) for _ in range(max(k, 3))]
+    for w in words:
+        w[:, :3] = edges
+    if k == 0:
+        state = torch.stack(words).contiguous()
+        rc, got, consts = _poseidon(flib, cfg, [], state, n)
+        want = FK.poseidon_permute_plain(state, consts, cfg.full_rounds,
+                                         cfg.partial_rounds, spec)
+    else:
+        rc, got, consts = _poseidon(flib, cfg, words[:k], None, n)
+        want = FK.poseidon_sponge_plain(words[:k], consts, cfg.full_rounds,
+                                        cfg.partial_rounds, spec)
+    assert rc == 0
+    assert torch.equal(got, want)
+
+
+def test_emulated_poseidon_refusals(flib):
+    """More columns than the kernel's 16, a negative column count and a
+    negative round count are refused (cudaErrorInvalidValue) before a
+    launch; an empty batch launches nothing and succeeds."""
+    cfg = TP.bn254_config()
+    cols = [_field_words(np.random.default_rng(7), L.FR, 70)]
+    assert _poseidon(flib, cfg, cols * 17, None, 70)[0] == 1
+    consts = PB._device_tables(cfg, torch.device("cpu"))
+    out = torch.empty((8, 70), dtype=torch.int32)
+    ptrs = (ctypes.c_void_p * 1)(cols[0].data_ptr())
+    for k, half in ((-1, 4), (1, -1)):
+        assert flib.zt_poseidon(FK._field_id(L.FR), ptrs, k, None,
+                                out.data_ptr(), 70, consts.data_ptr(), half,
+                                cfg.partial_rounds, None) == 1
+    assert _poseidon(flib, cfg, cols, None, 0)[0] == 0
 
 
 def _fwd(flib, spec, a, mapping: int):

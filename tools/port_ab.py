@@ -3,6 +3,7 @@
 
     python3 tools/port_ab.py --parent build/parent   # from the repo root
     python3 tools/port_ab.py --parent build/parent --parts inversion
+    python3 tools/port_ab.py --parent build/parent --parts hashes
 
 Runs the parent checkout, this one, this one again and the parent again
 (each in its own process, which builds that checkout's kernels into its own
@@ -26,7 +27,11 @@ from a fixed seed (`--parts`, default all):
     coset_ntt and coset_intt at 2^13 by device time (50 calls a window,
     the device kernels seen a call beside: the profiler can drop a
     window's first kernels) and at 2^21 by CUDA events; and the device
-    time of a one-element fill, the floor of any launch.
+    time of a one-element fill, the floor of any launch;
+  - hashes: hashes.poseidon_batch.poseidon_hash_batch over two columns,
+    BN254 8/56 at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12, by CUDA
+    events (the host's launch gaps included), and the port's launches a
+    call.
 
 Both checkouts must expose those functions with the same signatures.
 """
@@ -47,7 +52,7 @@ from chip_smoke import cuda_ms, device_ms, device_profile  # noqa: E402
 ORDER = ("parent", "change", "change", "parent")
 
 
-PARTS = ("keygen", "msm", "inversion", "ntt")
+PARTS = ("keygen", "msm", "inversion", "ntt", "hashes")
 
 
 def measure(root: str, parts) -> dict:
@@ -73,6 +78,8 @@ def measure(root: str, parts) -> dict:
         out.update(measure_inversion(torch, np, dev))
     if "ntt" in parts:
         out.update(measure_ntt(torch, np, dev))
+    if "hashes" in parts:
+        out.update(measure_hashes(torch, np, dev))
     if "keygen" not in parts and "msm" not in parts:
         out["device"] = torch.cuda.get_device_name(0)
         return out
@@ -188,6 +195,32 @@ def measure_ntt(torch, np, dev) -> dict:
         torch.cuda.synchronize()
         out[f"witness_map_2_{log_n}_launches"] = sum(cuda.LAUNCHES.values())
         del evals
+    return out
+
+
+def measure_hashes(torch, np, dev) -> dict:
+    """The batched Poseidon hash through the function both checkouts
+    expose; random canonical words from a fixed seed."""
+    from zelana_tpu_torch.hashes import poseidon as P
+    from zelana_tpu_torch.hashes import poseidon_batch as PB
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import limbs as L
+
+    rng = np.random.default_rng(9)
+    out = {}
+    for key, cfg, n in (("bn254_8_56_2_15", P.bn254_config(), 1 << 15),
+                        ("bn254_8_57_2_12", P.bn254_config_57(), 1 << 12),
+                        ("bls12_381_8_57_2_12", P.bls12_381_config(),
+                         1 << 12)):
+        cols = [rand_words(torch, np, rng, L.FieldSpec(cfg.modulus), n, dev)
+                for _ in range(2)]
+        fn = lambda: PB.poseidon_hash_batch(cfg, cols)  # noqa: E731
+        out[f"poseidon_{key}_ms"] = cuda_ms(torch, fn, 5)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[f"poseidon_{key}_launches"] = sum(cuda.LAUNCHES.values())
     return out
 
 

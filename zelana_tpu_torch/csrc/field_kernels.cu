@@ -1,11 +1,13 @@
 // Elementwise and chained field kernels: the Montgomery multiply, the
-// MiMC-91 permutation and the three pieces of Montgomery batch inversion.
-// (The NTT's butterfly stages run in ntt_kernels.cu.)
+// MiMC-91 and Poseidon permutations and the three pieces of Montgomery
+// batch inversion. (The NTT's butterfly stages run in ntt_kernels.cu.)
 //
-// mont_mul replaces pallas_field._mont_mul_call / mont_mul_pallas (reached
-// through Poseidon's rounds, hashes/poseidon_batch.py); mimc_permute
-// replaces pallas_field.mimc_permute_call; inv_fwd, inv_bwd and inv_base
-// replace _inv_fwd_call, _inv_bwd_call and _fermat_call (batch_inv_pallas).
+// mont_mul replaces pallas_field._mont_mul_call / mont_mul_pallas as an
+// elementwise product (no path of the port launches it: Poseidon's rounds
+// run inside poseidon_kernel, the NTT's products inside ntt_kernels.cu);
+// mimc_permute replaces pallas_field.mimc_permute_call; inv_fwd, inv_bwd
+// and inv_base replace _inv_fwd_call, _inv_bwd_call and _fermat_call
+// (batch_inv_pallas).
 //
 // What bounds them on an H100: a 256-bit CIOS multiply is ~264 32-bit
 // integer multiply instructions for 96 bytes of traffic (mont_mul), so on
@@ -61,6 +63,134 @@ __global__ void mimc_permute_kernel(const u32* __restrict__ x,
         s = mul(t6, t);
     }
     store<1>(out, n, i, s);
+}
+
+// Poseidon, width 3 (capacity 1, rate 2), alpha 5: the whole permutation, and
+// the sponge around it, in one launch. Replaces hashes/poseidon_jax.py's
+// poseidon_permute_batch / poseidon_hash_batch, whose 64 or 65 rounds reach
+// pallas_field._mont_mul_call once a product on a TPU (three s-box products
+// a lane and nine MDS products a round); here nothing of a round leaves the
+// thread. One thread a state, its 3 x 8 words in registers across all
+// rounds; the round constants (rounds x 3 ARK rows, then the 3 x 3 MDS, 8
+// words each: at most 6,528 bytes) staged once a block in shared memory,
+// where every thread of a round reads the same word (a broadcast). Bound by
+// the integer multiply rate: 816 products a permutation at 8/56 (8 full
+// rounds of 18, 56 partial of 12), 828 at 8/57, each 264 32-bit multiplies,
+// against 32 bytes an input column and 32 an output. Each round's products
+// are independent of one another but for the s-box chain x^2, x^4, x^5, so
+// they are unrolled and the compiler interleaves their carry chains; the
+// round loops stay rolled (a round's code is ~5,000 instructions).
+constexpr int kPoseidonMaxCols = 16;
+
+struct PoseidonCols {
+    const u32* p[kPoseidonMaxCols];
+};
+
+// cols.p[c] by compares (an index into a kernel parameter that is not a
+// constant would copy the struct to the thread's stack)
+__device__ __forceinline__ const u32* col_ptr(const PoseidonCols& cols,
+                                              int c) {
+    const u32* p = cols.p[0];
+#pragma unroll
+    for (int q = 1; q < kPoseidonMaxCols; ++q) p = c == q ? cols.p[q] : p;
+    return p;
+}
+
+template <int F>
+__device__ __forceinline__ Fp<F> smem_fp(const u32* s) {
+    Fp<F> r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = s[j];
+    return r;
+}
+
+template <int F>
+__device__ __forceinline__ Fp<F> pow5(const Fp<F>& x) {
+    const Fp<F> x2 = mul(x, x);
+    return mul(mul(x2, x2), x);
+}
+
+// one round: add the ARK row (ark: 3 x 8 words), x^5 on every lane (FULL)
+// or on lane 0, then the MDS apply (mds: 3 x 3 x 8 words, row i column j
+// the constant that multiplies lane j into lane i)
+template <int F, bool FULL>
+__device__ __forceinline__ void poseidon_round(Fp<F> (&s)[3], const u32* ark,
+                                               const u32* mds) {
+#pragma unroll
+    for (int l = 0; l < 3; ++l) s[l] = add(s[l], smem_fp<F>(ark + 8 * l));
+    if (FULL) {
+#pragma unroll
+        for (int l = 0; l < 3; ++l) s[l] = pow5(s[l]);
+    } else {
+        s[0] = pow5(s[0]);
+    }
+    Fp<F> t[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        t[i] = mul(s[0], smem_fp<F>(mds + 24 * i));
+#pragma unroll
+        for (int j = 1; j < 3; ++j)
+            t[i] = add(t[i], mul(s[j], smem_fp<F>(mds + 24 * i + 8 * j)));
+    }
+#pragma unroll
+    for (int l = 0; l < 3; ++l) s[l] = t[l];
+}
+
+// half full rounds, the partial rounds, half full rounds; c: the staged
+// constants
+template <int F>
+__device__ __forceinline__ void poseidon_permute(Fp<F> (&s)[3], const u32* c,
+                                                 int half, int partial) {
+    const u32* mds = c + (2 * half + partial) * 24;
+#pragma unroll 1
+    for (int r = 0; r < half; ++r) poseidon_round<F, true>(s, c + 24 * r, mds);
+    c += 24 * half;
+#pragma unroll 1
+    for (int r = 0; r < partial; ++r)
+        poseidon_round<F, false>(s, c + 24 * r, mds);
+    c += 24 * partial;
+#pragma unroll 1
+    for (int r = 0; r < half; ++r) poseidon_round<F, true>(s, c + 24 * r, mds);
+}
+
+// k = 0: permute the (3, 8, n) state into out (3, 8, n). k >= 1: the sponge
+// over k (8, n) columns from a zero state, capacity first: column c goes
+// into lane 1 + c % 2, a permutation follows every second column and the
+// last; out (8, n) is lane 1.
+template <int F>
+__global__ void poseidon_kernel(PoseidonCols cols, int k,
+                                const u32* __restrict__ state,
+                                u32* __restrict__ out, long n,
+                                const u32* __restrict__ consts, int half,
+                                int partial) {
+    extern __shared__ u32 s_c[];
+    const int nc = ((2 * half + partial) * 3 + 9) * 8;
+    for (int q = threadIdx.x; q < nc; q += blockDim.x) s_c[q] = consts[q];
+    __syncthreads();
+    const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Fp<F> s[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+        if (k == 0) {
+            s[l] = load<F>(state + 8 * n * l, n, i);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[l].w[j] = 0;
+        }
+    }
+    int c = 0;
+    do {
+        if (c < k) s[1] = add(s[1], load<F>(col_ptr(cols, c++), n, i));
+        if (c < k) s[2] = add(s[2], load<F>(col_ptr(cols, c++), n, i));
+        poseidon_permute<F>(s, s_c, half, partial);
+    } while (c < k);
+    if (k == 0) {
+#pragma unroll
+        for (int l = 0; l < 3; ++l) store<F>(out + 8 * n * l, n, i, s[l]);
+    } else {
+        store<F>(out, n, i, s[1]);
+    }
 }
 
 // Batch inversion, the TPU's chain layout: n is a multiple of 1024, cut into
@@ -429,6 +559,38 @@ extern "C" int zt_mimc_permute(const void* x, const void* rc, void* out,
     mimc_permute_kernel<<<blocks_for(n), kThreads, rounds * 8 * sizeof(u32),
                           (cudaStream_t)stream>>>(
         (const u32*)x, (const u32*)rc, (u32*)out, n, rounds);
+    return (int)cudaGetLastError();
+}
+
+// Poseidon (poseidon_kernel), field as zt_mont_mul's. cols: k host
+// pointers to (8, n) words, 0 <= k <= kPoseidonMaxCols (passed to the
+// kernel by value); k = 0 permutes state (3, 8, n) into out (3, 8, n),
+// k >= 1 hashes the columns into out (8, n). consts: ((2 half + partial) x
+// 3 + 9) x 8 words, the ARK rows then the MDS. The block size is
+// ZT_POSEIDON_THREADS, a compile-time constant (tools/poseidon_blocks.py
+// builds and times other values; PERF.md has its sweep).
+#ifndef ZT_POSEIDON_THREADS
+#define ZT_POSEIDON_THREADS 128
+#endif
+static_assert(ZT_POSEIDON_THREADS % 32 == 0 && ZT_POSEIDON_THREADS <= 1024,
+              "ZT_POSEIDON_THREADS: a multiple of 32 up to 1024");
+
+extern "C" int zt_poseidon(int field, const void* const* cols, int k,
+                           const void* state, void* out, long n,
+                           const void* consts, int half, int partial,
+                           void* stream) {
+    if (n <= 0) return 0;
+    if (k < 0 || k > kPoseidonMaxCols || half < 0 || partial < 0)
+        return (int)cudaErrorInvalidValue;
+    constexpr int threads = ZT_POSEIDON_THREADS;
+    PoseidonCols pc = {};
+    for (int c = 0; c < k; ++c) pc.p[c] = (const u32*)cols[c];
+    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    const int bytes = ((2 * half + partial) * 3 + 9) * 8 * sizeof(u32);
+    cudaStream_t s = (cudaStream_t)stream;
+    ZT_BY_FIELD(field, poseidon_kernel<F><<<blocks, threads, bytes, s>>>(
+                           pc, k, (const u32*)state, (u32*)out, n,
+                           (const u32*)consts, half, partial));
     return (int)cudaGetLastError();
 }
 

@@ -32,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "ntt_cross": 0, "runscan": 0,
-            "bucket_tail": 0, "step": 0, "mimc_permute": 0, "inv_fwd": 0,
-            "inv_bwd": 0, "inv_base": 0, "jac_add": 0, "jac_double": 0}
+            "bucket_tail": 0, "step": 0, "mimc_permute": 0, "poseidon": 0,
+            "inv_fwd": 0, "inv_bwd": 0, "inv_base": 0, "jac_add": 0,
+            "jac_double": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -113,6 +114,7 @@ def _declare(cdll) -> None:
         "zt_bucket_tree": [i, p, i, p, p],
         "zt_step": [i, i, p, p, p, l, l, l, l, i, p],
         "zt_mimc_permute": [p, p, p, l, i, p],
+        "zt_poseidon": [i, p, i, p, p, l, p, i, i, p],
         "zt_inv_fwd": [i, p, p, p, l, i, p],
         "zt_inv_bwd": [i, p, p, p, p, l, i, p],
         "zt_inv_base": [i, p, p, l, p],

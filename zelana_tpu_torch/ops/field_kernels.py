@@ -1,9 +1,11 @@
 """Field kernels, each beside its plain version.
 
 - ``mont_mul(a, b, spec)``: elementwise Montgomery product of two (8, N)
-  word batches (Poseidon's rounds). CUDA kernel
-  ``csrc/field_kernels.cu: mont_mul_kernel``; replaces the TPU kernel
-  ``pallas_field._mont_mul_call`` (mont_mul_pallas).
+  word batches. CUDA kernel ``csrc/field_kernels.cu: mont_mul_kernel``;
+  replaces the TPU kernel ``pallas_field._mont_mul_call``
+  (mont_mul_pallas) as a function of its own. No path of the port calls
+  it: the products that reach ``_mont_mul_call`` on a TPU run inside
+  ``poseidon_kernel`` (Poseidon's rounds) and the NTT kernels here.
 - ``butterfly_plain(a, b, tw, spec)``: one radix-2 DIT stage over m
   pairs, (a, b, w) -> (a + w*b, a - w*b), in plain torch: the stage of
   ``ntt.ntt_pass_plain``. On the card the stages run inside the NTT pass
@@ -13,6 +15,12 @@
   x <- (x + c_r)^7 for each row c_r of the (R, 8) round constants, BN254 Fr
   only. CUDA kernel ``mimc_permute_kernel``; replaces
   ``pallas_field.mimc_permute_call``.
+- ``poseidon_permute(state, consts, full, partial, spec)`` and
+  ``poseidon_sponge(columns, consts, full, partial, spec)``: the Poseidon
+  permutation (width 3, alpha 5) and the rate-2 sponge over it, every
+  round in one launch. CUDA kernel ``poseidon_kernel``; replaces
+  ``hashes/poseidon_jax.py``'s rounds, whose products reach
+  ``pallas_field._mont_mul_call`` one launch a product on a TPU.
 - ``inv_fwd``, ``inv_bwd``, ``inv_base`` and their recursion
   ``batch_inv``: Montgomery batch inversion over chains of 16. CUDA kernels
   ``inv_fwd_kernel`` / ``inv_fwd_scan_kernel``, ``inv_bwd_kernel`` /
@@ -27,6 +35,8 @@ and Fr and BLS12-381 Fr; other moduli raise.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -111,6 +121,125 @@ def mimc_permute(x: torch.Tensor, rc: torch.Tensor,
     cuda.launch("field_kernels", "zt_mimc_permute", x.data_ptr(),
                 rc.data_ptr(), out.data_ptr(), n, rounds, device=dev)
     cuda.LAUNCHES["mimc_permute"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Poseidon: width 3 (capacity 1, rate 2), alpha 5
+# ---------------------------------------------------------------------------
+
+POSEIDON_WIDTH = 3
+POSEIDON_MAX_COLS = 16  # the kernel takes the column pointers by value
+
+
+def poseidon_rows(full: int, partial: int) -> int:
+    """Rows of 8 words of the constants: full + partial rounds of 3 ARK
+    rows (round r, lane l at row 3 r + l), then the 3 x 3 MDS (row i,
+    column j at 3 (full + partial) + 3 i + j)."""
+    if full < 0 or full % 2 or partial < 0:
+        raise ValueError(f"poseidon: {full} full rounds (an even count) and "
+                         f"{partial} partial rounds")
+    return (full + partial + POSEIDON_WIDTH) * POSEIDON_WIDTH
+
+
+def _pow5_l(x, spec):
+    x2 = L.mul_l(x, x, spec)
+    return L.mul_l(L.mul_l(x2, x2, spec), x, spec)
+
+
+def _permute_l(s, consts, full: int, partial: int, spec):
+    """One permutation of (16, 3, n) limbs; consts as poseidon_rows."""
+    w, rounds = POSEIDON_WIDTH, full + partial
+    c = L.unpack(consts.T.contiguous())  # (16, rows)
+    ark = c[:, :w * rounds].reshape(L.NLIMBS, rounds, w, 1)
+    mds = c[:, w * rounds:].reshape(L.NLIMBS, w, w, 1)
+    n = s.shape[2]
+    mds = mds.expand(L.NLIMBS, w, w, n)
+    for r in range(rounds):
+        s = L.add_l(s, ark[:, r], spec)
+        if r < full // 2 or r >= full // 2 + partial:
+            s = _pow5_l(s, spec)
+        else:
+            s = torch.cat([_pow5_l(s[:, :1], spec), s[:, 1:]], dim=1)
+        # prod[:, i, j] = s[:, j] * mds[:, i, j], then the sum over j
+        prod = L.mul_l(s.unsqueeze(1).expand(L.NLIMBS, w, w, n), mds, spec)
+        s = L.add_l(L.add_l(prod[:, :, 0], prod[:, :, 1], spec),
+                    prod[:, :, 2], spec)
+    return s
+
+
+def poseidon_permute_plain(state: torch.Tensor, consts: torch.Tensor,
+                           full: int, partial: int,
+                           spec: L.FieldSpec) -> torch.Tensor:
+    poseidon_rows(full, partial)
+    w, n = POSEIDON_WIDTH, state.shape[2]
+    s = L.unpack(state.reshape(w * L.NWORDS, n)).reshape(w, L.NLIMBS, n)
+    s = _permute_l(s.transpose(0, 1), consts, full, partial, spec)
+    return L.pack(s.transpose(0, 1).reshape(w * L.NLIMBS, n)).reshape(
+        w, L.NWORDS, n)
+
+
+def poseidon_sponge_plain(columns, consts: torch.Tensor, full: int,
+                          partial: int, spec: L.FieldSpec) -> torch.Tensor:
+    poseidon_rows(full, partial)
+    n = columns[0].shape[1]
+    s = torch.zeros((L.NLIMBS, POSEIDON_WIDTH, n), dtype=torch.int64,
+                    device=columns[0].device)
+    for c, col in enumerate(columns):
+        if c and c % 2 == 0:
+            s = _permute_l(s, consts, full, partial, spec)
+        s[:, 1 + c % 2] = L.add_l(s[:, 1 + c % 2], L.unpack(col), spec)
+    return L.pack(_permute_l(s, consts, full, partial, spec)[:, 1])
+
+
+def _poseidon_launch(cols, state, out, n, consts, full, partial, spec,
+                     dev) -> None:
+    ptrs = (ctypes.c_void_p * max(len(cols), 1))(
+        *[c.data_ptr() for c in cols])
+    cuda.launch("field_kernels", "zt_poseidon", _field_id(spec), ptrs,
+                len(cols), state, out.data_ptr(), n, consts.data_ptr(),
+                full // 2, partial, device=dev)
+    cuda.LAUNCHES["poseidon"] += 1
+
+
+def poseidon_permute(state: torch.Tensor, consts: torch.Tensor, full: int,
+                     partial: int, spec: L.FieldSpec) -> torch.Tensor:
+    """One Poseidon permutation of a (3, 8, n) Montgomery state (lane,
+    word, element), full / 2 full rounds, the partial rounds, full / 2
+    full rounds; consts: (poseidon_rows(full, partial), 8) Montgomery
+    words."""
+    rows = poseidon_rows(full, partial)
+    if state.device.type == "cpu" and consts.device.type == "cpu":
+        return poseidon_permute_plain(state, consts, full, partial, spec)
+    n = state.shape[2]
+    dev = cuda.check([state, consts], [(POSEIDON_WIDTH, L.NWORDS, n),
+                                       (rows, L.NWORDS)], "poseidon")
+    out = torch.empty_like(state)
+    _poseidon_launch([], state.data_ptr(), out, n, consts, full, partial,
+                     spec, dev)
+    return out
+
+
+def poseidon_sponge(columns, consts: torch.Tensor, full: int, partial: int,
+                    spec: L.FieldSpec) -> torch.Tensor:
+    """absorb(columns) then squeeze(1) of the rate-2, capacity-1 sponge
+    from a zero state: column c is added into lane 1 + c % 2, a permutation
+    runs before columns 2, 4, ... and after the last; returns lane 1, (8,
+    n). columns: 1 to POSEIDON_MAX_COLS (8, n) Montgomery words; consts as
+    poseidon_permute's. One launch, the columns read in place."""
+    rows = poseidon_rows(full, partial)
+    k = len(columns)
+    if not 1 <= k <= POSEIDON_MAX_COLS:
+        raise ValueError(f"poseidon_sponge: 1 to {POSEIDON_MAX_COLS} "
+                         f"columns, got {k}")
+    if all(t.device.type == "cpu" for t in (*columns, consts)):
+        return poseidon_sponge_plain(columns, consts, full, partial, spec)
+    n = columns[0].shape[1]
+    dev = cuda.check([*columns, consts], [(L.NWORDS, n)] * k
+                     + [(rows, L.NWORDS)], "poseidon")
+    out = torch.empty((L.NWORDS, n), dtype=torch.int32, device=dev)
+    _poseidon_launch(columns, None, out, n, consts, full, partial, spec,
+                     dev)
     return out
 
 
