@@ -87,6 +87,23 @@ Phases (any failure exits non-zero and prints no result):
      byte-equal to zelana_tpu_torch/testdata/l2_batch_proof.json and
      verified; OwnershipProver (seed-0 keygen, then the proof) equal to
      testdata/ownership_proof.json and verified;
+  `shielded`: the shielded transfer (circuits/shielded.py: 2 inputs, 2
+     outputs, depth 32; 19,005 variables, a 2^15 domain), built from the
+     constants of zelana_tpu_torch/testdata/shielded_proof.json with the
+     port's NoteTree: keygen(seed=0) (its SHA-256 and verifying key equal
+     to the JAX package's, one step launch a fixed-base chunk, asserted),
+     prove(batch_id=1) three times (byte-equal to the JAX proof, verified;
+     the first and two warm proofs timed), the launches of a proof (21
+     ntt_pass, two run-scans and a two-launch tail a segment, no mont_mul
+     or poseidon) asserted against the plan and the schedules, K2 of the
+     schedules at most K2_BOUND; the 2^15 witness map, the a query's two
+     run-scans and bucket tail on the schedule the prove built, and the
+     keygen's step rounds on its longest chunk of each curve against their
+     plain versions on the card; a warm proof under torch.profiler (the
+     fullest of up to three windows: busy time, idle share, each kernel's
+     device time and launches kept beside its bound);
+     the instance with fee + 1 refused on the host with no launch. The
+     launches go to the kernels line as `shielded_launches`;
   7. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
      production key (1,129,391 variables, 2^21 domain) with the step
      kernel (one launch per chunk and curve), then prove_chunks proves a
@@ -157,7 +174,8 @@ Phases (any failure exits non-zero and prints no result):
      on the L2 slice, step on the production keygen and, apart, on the
      tape MSMs, jac_add / jac_double on the Jacobian MSMs, mimc_permute
      and poseidon on the hashes, inv_fwd / inv_bwd /
-     inv_base on the inversions, ntt_cross on the mesh path), the card,
+     inv_base on the inversions, ntt_cross on the mesh path; beside them
+     the served, command-line and shielded paths' launches), the card,
      the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -184,7 +202,8 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "engines", "services", "production", "sequencer", "cli", "mesh")
+          "engines", "services", "shielded", "production", "sequencer",
+          "cli", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -261,6 +280,9 @@ def main() -> int:
         tape = {"tape_launches": tape_runs, "tape_steps": step_times}
     if "services" in phases:
         phase_services(torch, dev, report)
+    shielded = {}
+    if "shielded" in phases:
+        shielded = phase_shielded(torch, dev, report)
     chunk_prover, served = None, {}
     if "production" in phases:
         # step's launches come from the production keygen
@@ -292,6 +314,8 @@ def main() -> int:
             k["sequencer_launches"] = served[k["name"]]
         if k["name"] in cli:  # and on the command line's in-process runs
             k["cli_launches"] = cli[k["name"]]
+        if k["name"] in shielded:  # a shielded proof's, step the keygen's
+            k["shielded_launches"] = shielded[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
@@ -852,15 +876,28 @@ def _step_keygen_chunk(torch, dev, rng, check) -> dict:
         work = pool.clone()
         out["ms"] += cuda_ms(torch, lambda: rounds(work), 5)
         out["plain"] += cuda_ms(torch, lambda: rounds(work, True), 1, False)
-        muls = 12 if curve == "g1" else 42
-        out["bytes"] += head_n * C * 4 + 2 * S * 4 + n * C * 4
-        out["ops"] += (2 * S - n) * muls * MUL_OPS  # S + S/2 + ... + n adds
+        nbytes, ops = step_work(n, curve)
+        out["bytes"] += nbytes
+        out["ops"] += ops
         del pool, got, want, work
     out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
     log(f"  step, one keygen chunk, G1 + G2: {out['ms']:.4f} ms kernel, "
         f"{out['plain']:.1f} ms plain, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']})")
     return out
+
+
+def step_work(n: int, curve: str) -> tuple:
+    """(bytes, int32 operations) of keygen's five step rounds on n scalars:
+    the table head read once, the two id arrays, the n sums written, and 12
+    (G1) or 42 (G2) Montgomery products for each of the 31 n adds."""
+    from zelana_tpu_torch.ops import fixed_base as FB
+
+    C = 24 if curve == "g1" else 48
+    S = n * FB.N_WINDOWS // 2
+    muls = 12 if curve == "g1" else 42
+    return ((FB.N_TABLE + 1) * C * 4 + 2 * S * 4 + n * C * 4,
+            (2 * S - n) * muls * MUL_OPS)  # S + S/2 + ... + n adds
 
 
 def _mimc_kernel(torch, dev, rng, check) -> list:
@@ -2416,6 +2453,308 @@ def phase_services(torch, dev, report) -> dict:
         f"{res['proving_time_ms']} ms), equal and verified; launches "
         f"{launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the shielded transfer circuit: keygen and prove at a 2^15 domain
+# ---------------------------------------------------------------------------
+
+# the prover kernels' launch counters and their device kernels' names
+SHIELDED_DEVICE = {"ntt_pass": ("ntt_pass_kernel",),
+                   "runscan": ("runscan_kernel",),
+                   "bucket_tail": ("bucket_merge_kernel",
+                                   "bucket_tree_kernel")}
+
+
+def phase_shielded(torch, dev, report) -> dict:
+    """The shielded transfer (circuits/shielded.py, 2 inputs, 2 outputs,
+    depth 32, a 2^15 domain) keygen'd and proved on the card through the
+    generic keygen / prove / verify, held to
+    zelana_tpu_torch/testdata/shielded_proof.json (the JAX package's seed-0
+    key and batch-1 proof of the same instance): the key's SHA-256, the
+    proof's bytes, verify; the launches of keygen and of each proof against
+    what the NTT plan, the fixed-base chunks and the MSM segments say; the
+    path's kernels against their plain versions on the card at the path's
+    shapes (the 2^15 witness map, the a query's run-scans and bucket tail
+    on the schedule the prove built, the keygen's step rounds on its own
+    chunks); a warm proof under torch.profiler; a tampered instance
+    refused on the host with no launch. Returns the launches: the kernels
+    of one proof, and step of the keygen."""
+    import hashlib
+
+    from zelana_tpu_torch.circuits import shielded as S
+    from zelana_tpu_torch.groth16 import prove as GP
+    from zelana_tpu_torch.groth16.keys import prepare_queries
+    from zelana_tpu_torch.groth16.qap import matrix_vector_evals
+    from zelana_tpu_torch.groth16.setup import keygen
+    from zelana_tpu_torch.groth16.verify import verify
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import fixed_base as FB
+    from zelana_tpu_torch.ops import limbs as L
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.ops import ntt as NTT
+    from zelana_tpu_torch.poly.domain import Domain
+    from zelana_tpu_torch.r1cs.system import ConstraintSystem
+    from zelana_tpu_torch.sequencer.prover_service import \
+        proof_to_solana_bytes
+
+    sys.path.insert(0, os.path.abspath("tools"))
+    from record_service_vectors import shielded_instance
+
+    rep = report.setdefault("shielded", {})
+    with open("zelana_tpu_torch/testdata/shielded_proof.json") as f:
+        vec = json.load(f)
+    const, batch_id = vec["instance"], vec["instance"]["batch_id"]
+    t0 = time.time()
+    circuit = shielded_instance(S, const)
+    cs = ConstraintSystem()
+    circuit.generate_constraints(cs)
+    A, B, C = cs.matrices()
+    z, ni = cs.full_assignment(), cs.num_instance
+    pub = cs.instance_values[1:]
+    if [str(v) for v in pub] != vec["public_inputs"]:
+        raise AssertionError("shielded: public inputs differ from the vector")
+    domain = Domain.new(len(A) + ni)
+    log_n = domain.size.bit_length() - 1
+    rep.update(num_vars=len(z), num_constraints=len(A), domain=domain.size,
+               instance_ms=(time.time() - t0) * 1e3)
+    log(f"shielded instance (NoteTree, synthesis): "
+        f"{rep['instance_ms']:.1f} ms; {len(z)} variables, {len(A)} "
+        f"constraints, domain 2^{log_n}")
+
+    # keygen: the step launches, one a fixed-base chunk of each query
+    chunks, run_fb = [], FB._run_fb
+
+    def keep(head, words, curve):
+        chunks.append((head, words, curve))
+        return run_fb(head, words, curve)
+
+    FB._run_fb = keep
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.time()
+    try:
+        pk = keygen(circuit, seed=0)
+    finally:
+        FB._run_fb = run_fb
+    torch.cuda.synchronize()
+    rep["keygen_ms"] = (time.time() - t0) * 1e3
+    kg = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want_step = sum(-(-n // FB.FB_CHUNK)
+                    for n in (len(z), len(z), len(z), domain.size - 1,
+                              len(z) - ni))
+    if kg != {"step": want_step} or len(chunks) != want_step:
+        raise AssertionError(f"shielded keygen launched {kg}, not "
+                             f"{want_step} step (a chunk of each query)")
+    digest = hashlib.sha256(pk.serialize_compressed()).hexdigest()
+    if digest != vec["key_sha256"] or \
+            pk.vk.serialize_compressed().hex() != vec["vk"]:
+        raise AssertionError("shielded keygen: the seed-0 key differs from "
+                             "the JAX vector")
+    rep["keygen_launches"] = kg
+    log(f"shielded keygen (seed 0): {rep['keygen_ms']:.1f} ms wall, "
+        f"launches {kg}; key SHA-256 equal to the JAX vector")
+
+    # proofs: the first (key upload and NTT plan included), two warm
+    segs, build = [], MSM.build_segment_schedules
+
+    def keep_segs(digits, *a, **k):
+        out = build(digits, *a, **k)
+        segs.append((digits.shape[1], out))
+        return out
+
+    MSM.build_segment_schedules = keep_segs
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    times = []
+    try:
+        for _ in range(3):
+            t0 = time.time()
+            proof = GP.prove(pk, circuit, batch_id=batch_id)
+            times.append((time.time() - t0) * 1e3)
+            if proof.serialize_compressed().hex() != vec["proof"] or \
+                    proof_to_solana_bytes(proof).hex() != vec["proof_bytes"]:
+                raise AssertionError("shielded proof differs from the JAX "
+                                     "vector")
+    finally:
+        MSM.build_segment_schedules = build
+    torch.cuda.synchronize()
+    launches = {k: v // 3 for k, v in cuda.LAUNCHES.items() if v}
+    if not verify(pk.vk, proof, pub):
+        raise AssertionError("shielded proof does not verify")
+    # the first proof's two schedule sets, z's and h's (h on a worker)
+    segs_z, = [ss for n, ss in segs[:2] if n == len(z)]
+    segs_h, = [ss for n, ss in segs[:2] if n == domain.size - 1]
+    msm_segs = 4 * len(segs_z) + len(segs_h)
+    want = {"ntt_pass": 7 * len(NTT.default_split(log_n)),
+            "runscan": 2 * msm_segs, "bucket_tail": 2 * msm_segs}
+    if launches != want or any(v % 3 for v in cuda.LAUNCHES.values()):
+        raise AssertionError(f"3 shielded proofs launched {cuda.LAUNCHES}, "
+                             f"not {want} a proof (7 transforms x "
+                             f"{NTT.default_split(log_n)}; two scans and a "
+                             f"two-launch tail a segment)")
+    for name, ss in (("z", segs_z), ("h", segs_h)):
+        for s in ss:
+            sc = s["sched"]
+            K2 = sc.dense_idx.shape[0]
+            log(f"  {name} segment [{s['lo']}, {s['hi']}): R "
+                f"{sc.pid.shape[0] - 1} x {sc.pid.shape[1]} lanes, R2 "
+                f"{sc.pos2.shape[0] - 1} x {sc.pos2.shape[1]} lanes, K2 {K2}")
+            if K2 > MSM.K2_BOUND:
+                raise AssertionError(f"{name} schedule: K2 {K2} above "
+                                     f"{MSM.K2_BOUND}")
+    rep.update(first_prove_ms=times[0], warm_prove_ms=times[1:],
+               launches=launches)
+    log(f"shielded prove batch {batch_id}: first {times[0]:.1f} ms, warm "
+        f"{times[1]:.1f} / {times[2]:.1f} ms; byte-equal to the JAX vector "
+        f"and verified; launches a proof {launches}, no mont_mul or "
+        f"poseidon")
+
+    # the path's kernels against their plain versions on the card
+    err = 0
+
+    def check(what, got, ref):
+        mism, e = compare(torch, got, ref)
+        log(f"  {what}: mismatches {mism}, max |diff| {e}")
+        if mism:
+            raise AssertionError(f"{what} differs from the plain version")
+        return e
+
+    t0 = time.time()
+    plan = NTT.make_plan(domain.size)
+    evals = [L.to_tensor(L.encode_mont(
+        matrix_vector_evals(M, z, domain, M is A, ni), L.FR), dev)
+        for M in (A, B, C)]
+    err = max(err, check(
+        f"witness map 2^{log_n} {NTT.default_split(log_n)}",
+        GP.witness_map(evals, plan), GP.witness_map(evals, plan, plain=True)))
+    q = prepare_queries(pk, dev)
+    seg = segs_z[0]
+    d, pool = seg["dev"], q["a"][0][:, seg["lo"]:seg["hi"]]
+    emit = CK.runscan(pool, d["pid"], d["flag"], "g1")
+    err = max(err, check(
+        f"runscan g1 level 1, a query, {tuple(d['flag'].shape)}", emit,
+        CK.runscan_plain(pool, d["pid"], d["flag"], "g1")))
+    C1 = CK.rows("g1")
+    pool2 = emit.view(C1, -1)
+    emit2 = CK.runscan(pool2, d["pos2"], d["flag2"], "g1", True)
+    err = max(err, check(
+        f"runscan g1 level 2, a query, {tuple(d['flag2'].shape)}", emit2,
+        CK.runscan_plain(pool2, d["pos2"], d["flag2"], "g1", True)))
+    emit2 = emit2.view(C1, -1)
+    K = d["dense"].numel() // CK.NB
+    err = max(err, check(
+        f"bucket_tail g1, a query (K {K})",
+        CK.bucket_tail(emit2, d["dense"], K, "g1"),
+        CK.bucket_tail_plain(emit2, d["dense"], K, "g1")))
+    for curve in ("g1", "g2"):  # the h chunk (the longest), the b2 chunk
+        head, words, _ = max((c for c in chunks if c[2] == curve),
+                             key=lambda c: c[1].shape[1])
+        n = words.shape[1]
+        ia, ib = FB._slot_ids(words)
+        head_n = FB.N_TABLE + 1
+        p = torch.empty((head.shape[0], head_n + n), dtype=torch.int32,
+                        device=dev)
+        p[:, :head_n] = head
+        S_ = n * FB.N_WINDOWS // 2
+
+        def rounds(pool, plain=False):
+            if plain:
+                return CK.step_plain(pool, head_n, S_, curve, ia, ib,
+                                     rounds=FB.ROUNDS)
+            return CK.step(pool, head_n, S_, curve, ia, ib, read_hi=head_n,
+                           rounds=FB.ROUNDS)
+
+        err = max(err, check(
+            f"step {curve}, keygen chunk of {n} scalars, {FB.ROUNDS} rounds",
+            rounds(p.clone()), rounds(p.clone(), plain=True)))
+        ms = cuda_ms(torch, lambda: rounds(p), 5)
+        bms, by = bound_ms(*step_work(n, curve))
+        rep[f"step_{curve}"] = {"scalars": n, "ms": ms, "bound_ms": bms,
+                                "bound_by": by}
+        log(f"  step {curve}, {n} scalars: {ms:.4f} ms by events, bound "
+            f"{bms:.4f} ms ({by}), {bms / ms:.1%} of it")
+    rep["plain_checks_s"] = time.time() - t0
+    rep["max_abs_err"] = err
+    log(f"shielded path kernels bit-equal to their plain versions "
+        f"({rep['plain_checks_s']:.1f} s)")
+
+    # a warm proof under the profiler: busy time, idle share, and each
+    # kernel's device time beside its bound. A window can come back short
+    # of its kernels (device_profile): up to three proofs are profiled, one
+    # whose window holds every launch ends the search, the fullest counts
+    def kept(events):
+        return {k: sum(e.count for e in events
+                       if any(nm in e.key for nm in names))
+                for k, names in SHIELDED_DEVICE.items()}
+
+    best = None
+    for _ in range(3):
+        with profiled(torch) as prof:
+            t0 = time.time()
+            GP.prove(pk, circuit, batch_id=batch_id)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+        seen = kept(device_events(prof))
+        if best is None or sum(seen.values()) > sum(best[2].values()):
+            best = (prof, wall, seen)
+        if seen == launches:
+            break
+    prof, wall, seen = best
+    busy = _device_busy_ms(prof, "shielded prove")
+    events = device_events(prof)
+    bounds = {"ntt_pass": [bound_ms(32 * domain.size * 4,
+                                    witness_map_products(log_n) * MUL_OPS)]}
+    for key, curve, ss in (("a", "g1", segs_z), ("b1", "g1", segs_z),
+                           ("l", "g1", segs_z), ("b2", "g2", segs_z),
+                           ("h", "g1", segs_h)):
+        Cq = CK.rows(curve)
+        for s in ss:
+            d = s["dev"]
+            pool = q[key][0][:, s["lo"]:s["hi"]]
+            lvl2 = torch.empty((Cq, 0), dtype=torch.int32, device=dev)
+            K = d["dense"].numel() // CK.NB
+            bounds.setdefault("runscan", []).extend([
+                bound_ms(*runscan_work(torch, pool, d["pid"], d["flag"],
+                                       curve, False)),
+                bound_ms(*runscan_work(torch, lvl2, d["pos2"], d["flag2"],
+                                       curve, True))])
+            bounds.setdefault("bucket_tail", []).append(
+                bound_ms(*tail_work(torch, None, d["dense"], K, curve)))
+    per = {}
+    for k, names in SHIELDED_DEVICE.items():
+        ms = sum(e.self_device_time_total for e in events
+                 if any(nm in e.key for nm in names)) / 1e3
+        bms = sum(b[0] for b in bounds[k])
+        by = max(bounds[k])[1]
+        per[k] = {"device_ms": ms, "kernels_kept": seen[k], "bound_ms": bms,
+                  "bound_by": by}
+        log(f"  {k}: {ms:.4f} ms of device time a proof ({seen[k]} of "
+            f"{launches[k]} launches in the window), bound {bms:.4f} ms "
+            f"({by}), {bms / ms:.1%} of it" if ms else
+            f"  {k}: no device time in the window")
+    rep.update(profiled_wall_ms=wall, device_busy_ms=busy,
+               idle_share=1 - busy / wall, kernels=per)
+    log(f"shielded prove under the profiler: {wall:.1f} ms wall, device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}")
+
+    # a tampered instance (fee + 1) is refused on the host, before a launch
+    bad = shielded_instance(S, const, lambda c: setattr(c, "fee", c.fee + 1))
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    try:
+        GP.prove(pk, bad, batch_id=batch_id)
+    except ValueError as e:
+        if "unsatisfied" not in str(e):
+            raise
+    else:
+        raise AssertionError("the tampered shielded instance was proved")
+    if any(cuda.LAUNCHES.values()):
+        raise AssertionError(f"the tampered instance launched "
+                             f"{cuda.LAUNCHES}")
+    log("tampered instance (fee + 1): refused on the host, no launch")
+    return {**launches, **kg}
 
 
 # ---------------------------------------------------------------------------

@@ -411,12 +411,14 @@ def test_emulated_zeros_match_plain(flib, kernel, mapping):
 
 @pytest.mark.parametrize("log_n,split", [
     (10, [10]), (10, [5, 5]), (10, [4, 3, 3]), (10, [1, 9]), (11, [11]),
-    (11, None), (12, None), (13, None), (13, [7, 6]), (13, [3, 10])])
+    (11, None), (12, None), (13, None), (13, [7, 6]), (13, [3, 10]),
+    (15, None)])
 def test_emulated_ntt_passes_match_plain(nlib, monkeypatch, log_n, split):
     """Every kind of transform (no prologue or epilogue; 1/n; g^j; 1/n
     g^-j; the quotient (a b - c) / Z with 1/n g^-j) through the emulated
     pass kernel, each pass against ntt_pass_plain on the same input: the
-    card's own split (None) at 2^11 to 2^13, and forced splits from a pass
+    card's own split (None) at 2^11 to 2^13 and at the shielded
+    circuit's 2^15 ([5, 5, 5]), and forced splits from a pass
     of one stage to one of all 11 at 2^11 (64 KB of dynamic shared
     memory; ten at 2^13 with the spread bits cut to fit a tile). The first pass leaves
     its inputs unchanged; later passes run in place."""

@@ -73,6 +73,14 @@ from zelana_tpu_torch.tools import bench_udp, e2e, explorer
 
 assert cli.main(["test"]) == 0 and e2e.main() == 0
 assert settler.BridgeProgramSettler
+
+# the shielded transfer circuit and the last host modules
+from zelana_tpu_torch.circuits import shielded
+from zelana_tpu_torch.sdk import block, privacy, txblob
+from zelana_tpu_torch.sdk import ownership as sdk_ownership
+from zelana_tpu_torch.tools import db_tui, inspect_db
+
+assert shielded.NoteTree().root() == shielded.NoteTree()._empty[32]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or (m.startswith("zelana_tpu") and

@@ -1,7 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
-        [cubic] [pipeline] [cli]
+        [cubic] [pipeline] [cli] [shielded]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -40,10 +40,21 @@
   PASS lines; and the proof ``prove --pk <keygen's file> --batch-id 1``
   writes, which must be ``l2_dummy_proof.json``'s.
 
+- ``zelana_tpu_torch/testdata/shielded_proof.json``: the shielded
+  transfer (``circuits/shielded.py``, 2 inputs, 2 outputs, depth 32) of
+  ``SHIELDED``: two notes of spending key 111 (values 500 and 300,
+  randomness 7 and 8) inserted into an empty ``NoteTree``, spent into 490
+  to key 222's public key and 300 back to key 111's, fee 10. The JAX
+  ``groth16.setup.keygen(seed=0)`` and ``groth16.prove.prove`` as batch 1:
+  the constants, the public inputs, the SHA-256 of the key's compressed
+  serialization and its compressed verifying key, the compressed proof
+  and its 256 Solana bytes.
+
 The port is held against these files by tests/test_torch_prover_service.py,
-tests/test_torch_sharded.py, tests/test_torch_sequencer.py and
-tests/test_torch_cli.py (on the CPU) and by chip_smoke.py's ``services``,
-``sequencer`` and ``cli`` phases (on the card).
+tests/test_torch_sharded.py, tests/test_torch_sequencer.py,
+tests/test_torch_cli.py and tests/test_torch_shielded.py (on the CPU) and
+by chip_smoke.py's ``services``, ``sequencer``, ``cli`` and ``shielded``
+phases (on the card).
 """
 
 from __future__ import annotations
@@ -375,6 +386,99 @@ def record_cli() -> None:
     _write("cli_vectors.json", out)
 
 
+SHIELDED = {
+    "spending_keys": [111, 222],
+    "inputs": [{"value": 500, "randomness": 7, "owner": 0},
+               {"value": 300, "randomness": 8, "owner": 0}],
+    "outputs": [{"value": 490, "randomness": 21, "recipient": 1},
+                {"value": 300, "randomness": 22, "recipient": 0}],
+    "fee": 10,
+    "batch_id": 1,
+}
+
+
+def _b32(v: int) -> bytes:
+    return int(v).to_bytes(32, "little")
+
+
+def shielded_instance(S, const: dict = SHIELDED, tamper=None):
+    """The shielded transfer of `const`, built with the circuit module given
+    (the JAX package's or the port's ``circuits.shielded``): every input
+    note is inserted into a fresh ``NoteTree`` in order and spent by its
+    Merkle path; keys, randomness and values are small integers, encoded
+    as 32 bytes little-endian. `tamper(circuit)` edits it last."""
+    sks = [_b32(k) for k in const["spending_keys"]]
+    pks = [_b32(S.derive_owner_pk(sk)) for sk in sks]
+    tree = S.NoteTree()
+    notes = []
+    for n in const["inputs"]:
+        r, pk = _b32(n["randomness"]), pks[n["owner"]]
+        cm = S.note_commitment(n["value"], r, pk)
+        notes.append((n, r, pk, cm, tree.insert(cm)))
+    inputs, nullifiers = [], []
+    for n, r, pk, cm, pos in notes:
+        sibs, bits = tree.path(pos)
+        sk = sks[n["owner"]]
+        inputs.append(S.InputNoteWitness(
+            value=n["value"], randomness=r, owner_pk=pk, position=pos,
+            spending_key=sk, merkle_path=sibs, path_bits=bits))
+        nullifiers.append(_b32(S.note_nullifier(sk, cm, pos)))
+    outputs = [S.OutputNoteWitness(value=o["value"],
+                                   randomness=_b32(o["randomness"]),
+                                   recipient_pk=pks[o["recipient"]])
+               for o in const["outputs"]]
+    circuit = S.ShieldedTransferCircuit(
+        merkle_root=_b32(tree.root()), nullifiers=nullifiers,
+        commitments=[_b32(S.note_commitment(o.value, o.randomness,
+                                            o.recipient_pk))
+                     for o in outputs],
+        fee=const["fee"], inputs=inputs, outputs=outputs)
+    if tamper:
+        tamper(circuit)
+    return circuit
+
+
+def record_shielded() -> None:
+    import hashlib
+    import time
+
+    from zelana_tpu.circuits import shielded as S
+    from zelana_tpu.groth16.prove import prove, public_inputs_of
+    from zelana_tpu.groth16.setup import keygen
+    from zelana_tpu.groth16.verify import verify
+    from zelana_tpu.r1cs.system import ConstraintSystem
+    from zelana_tpu.sequencer.prover_service import proof_to_solana_bytes
+
+    circuit = shielded_instance(S)
+    cs = ConstraintSystem()
+    circuit.generate_constraints(cs)
+    assert cs.is_satisfied() is None
+    t0 = time.time()
+    pk = keygen(circuit, seed=0)
+    t1 = time.time()
+    proof = prove(pk, circuit, batch_id=SHIELDED["batch_id"])
+    t2 = time.time()
+    public = public_inputs_of(circuit)
+    assert verify(pk.vk, proof, public)
+    print(f"keygen {t1 - t0:.1f} s, prove {t2 - t1:.1f} s")
+    out = {
+        "circuit": "circuits/shielded.py ShieldedTransferCircuit, 2 inputs, "
+                   "2 outputs, depth 32, built by shielded_instance()",
+        "instance": SHIELDED,
+        "num_instance": cs.num_instance, "num_witness": cs.num_witness,
+        "num_constraints": cs.num_constraints,
+        "public_inputs": [str(v) for v in public],
+        "key_sha256": hashlib.sha256(pk.serialize_compressed()).hexdigest(),
+        "vk": pk.vk.serialize_compressed().hex(),
+        "proof": proof.serialize_compressed().hex(),
+        "proof_bytes": proof_to_solana_bytes(proof).hex(),
+        "recorded_with": f"{CMD} shielded (zelana_tpu.groth16.setup.keygen"
+                         "(seed=0), then zelana_tpu.groth16.prove.prove as "
+                         "batch 1)",
+    }
+    _write("shielded_proof.json", out)
+
+
 def _write(name: str, obj: dict) -> None:
     with open(os.path.join(TESTDATA, name), "w") as f:
         json.dump(obj, f, indent=1)
@@ -383,7 +487,8 @@ def _write(name: str, obj: dict) -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline", "cli"]
+    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline", "cli",
+                             "shielded"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
@@ -394,3 +499,5 @@ if __name__ == "__main__":
         record_pipeline()
     if "cli" in which:
         record_cli()
+    if "shielded" in which:
+        record_shielded()
