@@ -71,10 +71,14 @@ Phases (any failure exits non-zero and prints no result):
      lanes, 1,024 level-2 lanes) and at the chosen ones beside their bound,
      and the chosen level-1 pass and bucket tail against their plain
      versions on the card;
-  6. `engines`: jac_add and jac_double (ops/curve_ops.py) against their
-     plain versions on the card over 2^16 random points with every mask
-     case of point_add seeded in, jac_add at the scan's 2^20 lanes and
-     jac_double at the Horner step, timed beside their bounds; the tape
+  6. `engines`: the batch add jac_add (ops/curve_ops.py) against its
+     plain version on the card at sharded_msm's (C, 1) once for each mask
+     case of point_add, at 5 lanes and over 2^16 random points with the
+     cases seeded in, timed at (C, 1) beside its bound; the Jacobian MSM's forms (jac_scan at offsets
+     1, 128 and the chunk's last, a chunk's jac_reduce, jac_horner over 32
+     windows) against their plain versions on the 2^16 MSM's own sorted
+     digits, timed beside their bounds and, for the chains, their
+     dependent Fq products; the tape
      MSM (ops/msm_fast.py) and the Jacobian MSM (ops/msm.py) on the edge
      inputs of tests/test_msm.py and at 2^16 points (one chunk segment),
      G1 and G2, equal to the closed form and to msm_scan; the step
@@ -172,7 +176,8 @@ Phases (any failure exits non-zero and prints no result):
      G2) and on the two 8,192-wide orders of each first pair;
   9. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen and, apart, on the
-     tape MSMs, jac_add / jac_double on the Jacobian MSMs, mimc_permute
+     tape MSMs, jac_scan / jac_reduce / jac_horner on the Jacobian MSMs,
+     jac_add on the mesh path's sharded_msm, mimc_permute
      and poseidon on the hashes, inv_fwd / inv_bwd /
      inv_base on the inversions, ntt_cross on the mesh path; beside them
      the served, command-line and shielded paths' launches), the card,
@@ -295,8 +300,9 @@ def main() -> int:
     if "cli" in phases:
         cli = phase_cli(torch, report, card, chunk_prover)
     if "mesh" in phases:
-        entry, launches["ntt_cross"] = phase_mesh(torch, dev, report)
+        entry, mesh_launches = phase_mesh(torch, dev, report)
         kernels.append(entry)
+        launches.update(mesh_launches)
     wall = time.time() - t_start
     report["wall_s"] = wall
     log(f"chip_smoke wall time: {wall:.1f} s")
@@ -2037,29 +2043,39 @@ def _tiled_scalar(limbs, tile: int) -> int:
 # segment's width; `services`: the prover's service entry points
 # ---------------------------------------------------------------------------
 
-# Montgomery products of one point op as the kernels run it on general
-# inputs: a Jacobian add (add-2007-bl) 16 Fq or 16 Fq2 (3 Fq each), a
-# doubling 7; a tape step's mixed add 9 Fq / 10 Fq2 (mul_b3 of G2 one Fq2
-# product), its complete add 12 / 14 (RUNSCAN_MULS)
-JAC_ADD_FQ = {"g1": 16, "g2": 48}
-JAC_DBL_FQ = {"g1": 7, "g2": 21}
+# int32 operations of a Jacobian point op on general inputs: an add
+# (add-2007-bl) 12 products and 4 squarings, a doubling (dbl-2009-l) 2 and
+# 5; over Fq a product MUL_OPS and a squaring SQR_OPS, over Fq2 a product
+# 3 Fq products (Karatsuba) and a squaring 2 (complex squaring), MUL_OPS
+# each
+JAC_ADD_OPS = {"g1": 12 * MUL_OPS + 4 * SQR_OPS,
+               "g2": (12 * 3 + 4 * 2) * MUL_OPS}
+JAC_DBL_OPS = {"g1": 2 * MUL_OPS + 5 * SQR_OPS,
+               "g2": (2 * 3 + 5 * 2) * MUL_OPS}
+# Montgomery products of a tape step's mixed add 9 Fq / 10 Fq2 (mul_b3 of
+# G2 one Fq2 product), of its complete add 12 / 14 (RUNSCAN_MULS)
+# dependent products of the cooperative add and doubling (jac_kernels.cu:
+# product stages, a product a member a stage on the chains' teams)
+JAC_ADD_STAGES, JAC_DBL_STAGES = 5, 3
 STEP_FQ = {("g1", True): 9, ("g1", False): 12, ("g2", True): 30,
            ("g2", False): 42}
 JAC_CHECK_N = 1 << 16  # points of the mask-case checks
-JAC_SCAN_LANES = 1 << 20  # lanes of a scan step at 2^16 points
+JAC_FORMS = ("jac_scan", "jac_reduce", "jac_horner")
 # device kernels each MSM may run beside its own: copies and fills of the
-# pool, the uploads and the finals' gather (tape); gathers, rolls, selects,
-# the bucket scatter and a concatenation (Jacobian)
+# pool, the uploads and the finals' gather (tape); the points' gather, the
+# Z = one fill and the uploads of their order, run positions and run ends
+# (Jacobian)
 TAPE_KERNELS = ("step_kernel", "Memcpy", "Memset", "copy", "Fill", "index",
                 "scatter_gather")
-JAC_KERNELS = ("jac_add_kernel", "jac_double_kernel", "Memcpy", "Memset",
-               "copy", "Fill", "index", "scatter_gather", "roll", "where",
-               "CatArray")
+JAC_KERNELS = ("jac_scan_kernel", "jac_reduce_kernel", "jac_horner_kernel",
+               "Memcpy", "Memset", "copy", "Fill", "index", "scatter_gather")
 
 
 def _only_kernels(events, allowed, what: str) -> None:
     names = {e.key: e.count for e in events}
-    log(f"  {what}: device kernels {names}")
+    log(f"  {what}: device kernels (launches, ms of the window) "
+        + json.dumps({k[:70]: [e.count, e.self_device_time_total / 1e3]
+                      for k, e in zip(names, events)}))
     bad = [k for k in names if not any(a in k for a in allowed)]
     if bad:
         raise AssertionError(f"{what} ran device kernels outside "
@@ -2081,47 +2097,57 @@ def _tape_work(tape, curve: str):
     return nbytes, ops, mixed, general
 
 
+def _reduce_adds(ends) -> int:
+    """The bucket reductions' adds that the data needs, from (W, 256) run
+    ends: running += S_d adds where both are points, from the second
+    nonempty bucket down (buckets - 1 a window), total += running below the
+    highest nonempty bucket (its digit - 1); the rest meet an identity."""
+    import numpy as np
+
+    full = ends[:, 1:] >= 0
+    top = np.where(full.any(axis=1), full.shape[1] - np.argmax(
+        full[:, ::-1], axis=1), 0)
+    return int(np.maximum(full.sum(axis=1) - 1, 0).sum()
+               + np.maximum(top - 1, 0).sum())
+
+
 def _jac_msm_work(digits, curve: str):
     """(bytes, int32 operations) of a Jacobian MSM: the affine points read
-    once, the sort order, the result written; the scan's adds whose result
-    is kept, 510 bucket adds a window, the Horner's 31 adds and 248
-    doublings."""
-    import math
-
+    once, the sort order and run positions (int32) and run ends uploaded,
+    the result written; the adds that the data needs: the scan's (a lane
+    of a nonzero digit adds at each step 2^k <= its run position:
+    bit_length(pos) adds; digit 0's lanes none), the bucket reductions'
+    (_reduce_adds), the Horner's 31 adds and 248 doublings."""
     import numpy as np
 
     from zelana_tpu_torch.ops import msm as JM
 
     C = 24 if curve == "g1" else 48
     w, n = digits.shape
-    keys = np.sort(digits, axis=1)
-    starts = np.concatenate([np.ones((w, 1), bool),
-                             keys[:, 1:] != keys[:, :-1]], axis=1)
-    adds = int((~JM._scan_keeps(starts, math.ceil(math.log2(n)))).sum())
-    adds += 2 * (JM.N_BUCKETS - 1) * w + (w - 1)
+    chunk = JM._window_chunk(n)
+    adds = 0
+    for w0 in range(0, w, chunk):
+        pos, ends, _ = JM.scan_plan(digits[w0:w0 + chunk])
+        adds += int(np.frexp(np.maximum(pos, 0))[1].sum()) + _reduce_adds(ends)
+    adds += w - 1
     dbls = JM.WINDOW_BITS * (w - 1)
-    nbytes = 4 * (2 * C // 3 * n + w * n * 2 + C)
-    ops = (adds * JAC_ADD_FQ[curve] + dbls * JAC_DBL_FQ[curve]) * MUL_OPS
-    return nbytes, ops
+    nbytes = 4 * (2 * C // 3 * n + 2 * w * n + JM.N_BUCKETS * w + C)
+    return nbytes, adds * JAC_ADD_OPS[curve] + dbls * JAC_DBL_OPS[curve]
 
 
-def _jac_kernel_checks(torch, dev, rng, check, report) -> dict:
-    """jac_add and jac_double against their plain versions on the card:
-    JAC_CHECK_N random points with point_add's mask cases seeded in (count
-    1, and count 8 with an addend); jac_add at the scan's JAC_SCAN_LANES
-    lanes (general points, against the plain version block by block) and
-    at a bucket step's 16 windows, jac_double at the Horner step's one
-    point. Times beside their bounds (the general formula's products): at
-    2^20 lanes by CUDA events, the one-point step by device time (its
-    launch takes longer on the host than on the card). Returns the kernel
-    entries' numbers, G1 + G2."""
+def _jac_add_checks(torch, dev, rng, check, report) -> dict:
+    """The batch add (jac_add) against its plain version on the card: at
+    the shape of its one path, sharded_msm's combine of the ranks' (C, 1)
+    sums, once for each of point_add's mask cases; at 5 lanes (part of a
+    block) and at JAC_CHECK_N lanes (whole blocks) with the cases seeded
+    in. Timed at (C, 1), a general add, by device time beside its bound.
+    Returns its kernels-line numbers, G1 + G2."""
     from zelana_tpu_torch.ops import curve_kernels as CK
     from zelana_tpu_torch.ops import curve_ops as CO
     from zelana_tpu_torch.ops import limbs as L
 
-    out = {k: {"err": 0, "ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
-           for k in ("jac_add", "jac_double")}
-    n, big = JAC_CHECK_N, JAC_SCAN_LANES
+    a = {"err": 0, "ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0}
+    n = JAC_CHECK_N
     for curve in ("g1", "g2"):
         C = CK.rows(curve)
         rep = report.setdefault(curve, {})
@@ -2132,63 +2158,141 @@ def _jac_kernel_checks(torch, dev, rng, check, report) -> dict:
 
         p, q = CO.seed_mask_cases(words(n), words(n), words(n)[:C // 3],
                                   curve)
-        a, d = out["jac_add"], out["jac_double"]
         a["err"] = max(a["err"], check(
             f"jac_add {curve} {n}, every mask case", CO.jac_add(p, q, curve),
             CO.jac_add_plain(p, q, curve)))
-        d["err"] = max(d["err"], check(
-            f"jac_double {curve} {n}, every mask case",
-            CO.jac_double(p, curve), CO.jac_double_plain(p, curve)))
-        d["err"] = max(d["err"], check(
-            f"jac_double {curve} {n}, 8 doublings and an add, every mask "
-            f"case", CO.jac_double(p, curve, 8, q),
-            CO.jac_double_plain(p, curve, 8, q)))
-        # the scan step's shape: 16 windows x 2^16 lanes of general points,
-        # against the plain version block by block
-        P, Q = words(big), words(big)
-        got = CO.jac_add(P, Q, curve)
-        t0 = time.time()
-        for b in range(0, big, n):
+        cols = [(f"(C, 1) {case}", k, k + 1)
+                for k, case in enumerate(CO.MASK_CASES)]
+        for what, lo, hi in cols + [("5 lanes", 0, 5)]:
+            p1, q1 = p[:, lo:hi].contiguous(), q[:, lo:hi].contiguous()
             a["err"] = max(a["err"], check(
-                f"jac_add {curve} {big} block {b // n}", got[:, b:b + n],
-                CO.jac_add_plain(P[:, b:b + n], Q[:, b:b + n], curve)))
+                f"jac_add {curve} {what}", CO.jac_add(p1, q1, curve),
+                CO.jac_add_plain(p1, q1, curve)))
+        p1, q1 = p[:, :1].contiguous(), q[:, :1].contiguous()  # general
         torch.cuda.synchronize()
-        plain = 1e3 * (time.time() - t0)
-        ms = cuda_ms(torch, lambda: CO.jac_add(P, Q, curve), 5)
-        work = (3 * C * 4 * big, big * JAC_ADD_FQ[curve] * MUL_OPS)
-        rep["jac_add_2_20"] = {"ms": ms, "plain_ms": plain,
-                               "bound_ms": bound_ms(*work)[0]}
+        t0 = time.time()
+        for _ in range(3):
+            CO.jac_add_plain(p1, q1, curve)
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.time() - t0) / 3
+        ms = device_ms(torch, lambda: CO.jac_add(p1, q1, curve), 20, 1)
+        work = (3 * C * 4, JAC_ADD_OPS[curve])
+        rep["jac_add_combine"] = {"device_ms": ms, "plain_ms": plain,
+                                  "bound_ms": bound_ms(*work)[0],
+                                  "bound_by": bound_ms(*work)[1]}
         for k, v in zip(("ms", "plain", "bytes", "ops"), (ms, plain) + work):
             a[k] += v
-        # a bucket step's 16 windows, and the Horner step's one point
-        bq = words(16)
-        rep["jac_add_16_device_ms"] = device_ms(
-            torch, lambda: CO.jac_add(bq, bq.flip(1).contiguous(), curve),
-            20, 1)
-        one, add1 = words(1), words(1)
-        d["err"] = max(d["err"], check(
-            f"jac_double {curve} Horner step (1 point, 8 doublings, an add)",
-            CO.jac_double(one, curve, 8, add1),
-            CO.jac_double_plain(one, curve, 8, add1)))
-        ms = device_ms(torch, lambda: CO.jac_double(one, curve, 8, add1),
-                       20, 1)
-        plain = cuda_ms(torch, lambda: CO.jac_double_plain(
-            one, curve, 8, add1), 1, False)
-        work = (3 * C * 4, (8 * JAC_DBL_FQ[curve] + JAC_ADD_FQ[curve])
-                * MUL_OPS)
-        rep["jac_double_horner"] = {"device_ms": ms, "plain_ms": plain,
-                                    "bound_ms": bound_ms(*work)[0]}
-        for k, v in zip(("ms", "plain", "bytes", "ops"), (ms, plain) + work):
-            d[k] += v
         log(f"  {curve}: {json.dumps(rep)}")
-        del P, Q, got
-    for name, e in out.items():
-        e["bound_ms"], e["bound_by"] = bound_ms(e["bytes"], e["ops"])
-        log(f"  {name} (G1 + G2; jac_add at 2^20 lanes, jac_double at the "
-            f"Horner step): {e['ms']:.4f} ms kernel, {e['plain']:.1f} ms "
-            f"plain, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
-            f"{e['bound_ms'] / e['ms']:.1%} of it")
-    return out
+    a["bound_ms"], a["bound_by"] = bound_ms(a["bytes"], a["ops"])
+    log(f"  jac_add (G1 + G2 at (C, 1), the combine's shape, device time): "
+        f"{a['ms']:.5f} ms, {a['plain']:.2f} ms plain, bound "
+        f"{a['bound_ms']:.7f} ms ({a['bound_by']}), "
+        f"{a['bound_ms'] / a['ms']:.2%} of it")
+    return a
+
+
+def _jac_form_checks(torch, pool, digits, curve, check, forms, rep) -> None:
+    """The Jacobian MSM's three forms against their plain versions on the
+    card at the path's shapes, on the 2^16 MSM's own sorted digits: the
+    scan steps of the first window chunk at offsets 1, 128 and its last
+    (the lanes the kernel must write start as zeros; the plain version row
+    by row), that chunk's bucket reduction, and Horner over the 32 window
+    totals. Each timed beside its bound: the offset-1 step by CUDA events,
+    the reduction and Horner by device time, with the chain's dependent
+    Fq products (JAC_ADD_STAGES an add, JAC_DBL_STAGES a doubling). Adds
+    each form's numbers into forms[name]."""
+    import numpy as np
+
+    from zelana_tpu_torch.ops import curve_kernels as CK
+    from zelana_tpu_torch.ops import curve_ops as CO
+    from zelana_tpu_torch.ops import msm as JM
+
+    dev, C = pool.device, CK.rows(curve)
+    order = np.argsort(digits.astype(np.uint8), axis=1, kind="stable")
+    cw = JM._window_chunk(digits.shape[1])
+    pos, ends, steps = JM.scan_plan(digits[:cw])
+    src = JM._k_gather_points(pool, torch.from_numpy(order[:cw]).to(dev),
+                              curve)
+    dst = torch.empty_like(src)
+    pos_d = torch.from_numpy(pos).to(dev)
+    f = forms["jac_scan"]
+    for k in range(steps):
+        off = 1 << k
+        if off in (1, 128, 1 << (steps - 1)):
+            got = torch.where((pos_d < off // 2)[None], src,
+                              torch.zeros_like(src))
+            CO.jac_scan_step(src, got, pos_d, off, curve)
+            t0 = time.time()
+            for r in range(cw):
+                f["err"] = max(f["err"], check(
+                    f"jac_scan {curve} offset {off} row {r}",
+                    got[:, r:r + 1], CO.jac_scan_step_plain(
+                        src[:, r:r + 1], pos_d[r:r + 1], off, curve)))
+            torch.cuda.synchronize()
+            plain = 1e3 * (time.time() - t0)
+            ms = cuda_ms(torch, lambda: CO.jac_scan_step(
+                src, got, pos_d, off, curve), 5)
+            adds = int((pos >= off).sum())
+            copies = int(((pos >= off // 2) & (pos < off)).sum())
+            work = (4 * (C * (3 * adds + 2 * copies) + pos.size),
+                    adds * JAC_ADD_OPS[curve])
+            b = bound_ms(*work)
+            rep[f"jac_scan_offset_{off}"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": b[0],
+                "bound_by": b[1], "adds": adds, "lanes": pos.size}
+            if off == 1:
+                for key, v in zip(("ms", "plain", "bytes", "ops"),
+                                  (ms, plain) + work):
+                    f[key] += v
+            del got
+        CO.jac_scan_step(src, dst, pos_d, off, curve)
+        src, dst = dst, src
+    del dst
+    # the chunk's bucket reduction
+    f = forms["jac_reduce"]
+    ends_d = torch.from_numpy(ends).to(dev)
+    out = torch.empty((C, cw), dtype=torch.int32, device=dev)
+    CO.jac_bucket_reduce(src, ends_d, out, curve)
+    t0 = time.time()
+    f["err"] = max(f["err"], check(
+        f"jac_reduce {curve} {cw} windows", out,
+        CO.jac_bucket_reduce_plain(src, ends_d, curve)))
+    plain = 1e3 * (time.time() - t0)
+    ms = device_ms(torch, lambda: CO.jac_bucket_reduce(src, ends_d, out,
+                                                       curve), 5, 1)
+    work = (4 * C * (int((ends >= 0).sum()) + cw) + ends.nbytes,
+            _reduce_adds(ends) * JAC_ADD_OPS[curve])
+    chain = JM.N_BUCKETS * JAC_ADD_STAGES
+    rep["jac_reduce_chunk"] = {"device_ms": ms, "plain_ms": plain,
+                               "bound_ms": bound_ms(*work)[0],
+                               "dependent_products": chain,
+                               "ms_per_dependent_product": ms / chain}
+    for key, v in zip(("ms", "plain", "bytes", "ops", "chain"),
+                      (ms, plain) + work + (chain,)):
+        f[key] += v
+    del src, out
+    # Horner over the MSM's 32 window totals
+    f = forms["jac_horner"]
+    totals = JM._window_totals(pool, digits, curve)
+    got = CO.jac_horner(totals, curve)
+    t0 = time.time()
+    f["err"] = max(f["err"], check(f"jac_horner {curve} 32 windows", got,
+                                   CO.jac_horner_plain(totals, curve)))
+    plain = 1e3 * (time.time() - t0)
+    ms = device_ms(torch, lambda: CO.jac_horner(totals, curve), 5, 1)
+    w = totals.shape[1] - 1
+    work = (4 * C * (w + 2), w * (CO.WINDOW_BITS * JAC_DBL_OPS[curve]
+                                  + JAC_ADD_OPS[curve]))
+    chain = w * (CO.WINDOW_BITS * JAC_DBL_STAGES + JAC_ADD_STAGES)
+    rep["jac_horner"] = {"device_ms": ms, "plain_ms": plain,
+                         "bound_ms": bound_ms(*work)[0],
+                         "dependent_products": chain,
+                         "ms_per_dependent_product": ms / chain}
+    for key, v in zip(("ms", "plain", "bytes", "ops", "chain"),
+                      (ms, plain) + work + (chain,)):
+        f[key] += v
+    log(f"  {curve} forms at the path's shapes: "
+        f"{json.dumps({k: v for k, v in rep.items() if 'jac_' in k})}")
 
 
 def _edge_msms(torch, dev) -> None:
@@ -2227,13 +2331,16 @@ def _edge_msms(torch, dev) -> None:
 
 def phase_engines(torch, dev, report):
     """The tape MSM (msm_fast, the step kernel's mixed and general adds) and
-    the Jacobian windowed MSM (msm, jac_add / jac_double) at CHUNK_N =
-    2^16 points, G1 and G2, on tiled_msm's pools: both equal to the closed
-    form and to msm_scan; the step launches split mixed / general equal to
-    the tape's step counts; the point kernels' launches; each MSM under the
-    profiler with only its own kernels and the listed torch copies,
-    gathers and selects on the device. Returns (kernel entries, launches of
-    the MSM runs)."""
+    the Jacobian windowed MSM (msm: jac_scan, jac_reduce, jac_horner) at
+    CHUNK_N = 2^16 points, G1 and G2, on tiled_msm's pools: both equal to
+    the closed form and to msm_scan; the step launches split mixed /
+    general equal to the tape's step counts; the Jacobian MSM's launches
+    (its scan steps from its run positions, a reduction a window chunk,
+    one Horner, no batch add); each MSM under the profiler with only its
+    own kernels and the listed torch copies and gathers on the device;
+    the Jacobian forms against their plain versions at the path's shapes
+    (_jac_form_checks). Returns (kernel entries, launches of the MSM runs,
+    the tape's launches, its step times, the batch add's numbers)."""
     import numpy as np
 
     from zelana_tpu_torch.ops import cuda
@@ -2254,17 +2361,17 @@ def phase_engines(torch, dev, report):
                                                      0) + mism
         return err
 
-    jac = _jac_kernel_checks(torch, dev, rng, check,
-                             rep.setdefault("point_kernels", {}))
-    log(f"  jac kernels against their plain versions: mismatches "
-        f"{mismatches}")
+    jac_add = _jac_add_checks(torch, dev, rng, check,
+                              rep.setdefault("point_kernels", {}))
     if any(mismatches.values()):
-        raise AssertionError(f"jac kernels differ from their plain "
-                             f"versions: {mismatches}")
+        raise AssertionError(f"jac_add differs from its plain version: "
+                             f"{mismatches}")
     _edge_msms(torch, dev)
 
     n = MSM.CHUNK_N
-    launches = {"jac_add": 0, "jac_double": 0}
+    launches = dict.fromkeys(JAC_FORMS, 0)
+    forms = {k: {"err": 0, "ms": 0.0, "plain": 0.0, "bytes": 0.0, "ops": 0.0,
+                 "chain": 0} for k in JAC_FORMS}
     tape_runs = {"mixed": 0, "general": 0}
     step_times = {}
     step = CK.step
@@ -2304,22 +2411,25 @@ def phase_engines(torch, dev, report):
         tape_runs["mixed"] += mixed
         tape_runs["general"] += steps - mixed
 
-        # the Jacobian MSM and its point kernels' launches
+        # the Jacobian MSM and its point kernels' launches: a scan step for
+        # each bit of a chunk's longest run position
         cuda.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
         got_jac = JM._jac_to_affine_host(JM._msm(pool, digits, curve), curve)
         t_jac = 1e3 * (time.time() - t0)
-        chunks = -(-JM.N_WINDOWS // JM._window_chunk(n))
-        per = {"jac_add": chunks * ((n - 1).bit_length()
-                                    + 2 * (JM.N_BUCKETS - 1)),
-               "jac_double": JM.N_WINDOWS - 1}
+        cw = JM._window_chunk(n)
+        per = {"jac_scan": sum(JM.scan_plan(digits[w0:w0 + cw])[2]
+                               for w0 in range(0, JM.N_WINDOWS, cw)),
+               "jac_reduce": -(-JM.N_WINDOWS // cw), "jac_horner": 1,
+               "jac_add": 0}
         for k, v in per.items():
             if cuda.LAUNCHES[k] != v:
                 raise AssertionError(f"Jacobian MSM {curve}: {k} launched "
                                      f"{cuda.LAUNCHES[k]} times, expected "
                                      f"{v}")
-            launches[k] += v
+            if k in launches:
+                launches[k] += v
         if not got_tape == got_jac == got_scan == want:
             raise AssertionError(f"{curve} at 2^16: tape, Jacobian and "
                                  f"run-scan MSMs and the closed form differ")
@@ -2332,11 +2442,23 @@ def phase_engines(torch, dev, report):
         _only_kernels(events, TAPE_KERNELS, f"tape MSM {curve}")
         tb, tops, real_m, real_g = _tape_work(tape, curve)
         tape_bound = bound_ms(tb, tops)
+        walls = []
+        for _ in range(3):  # warm: the first call above loaded the kernels
+            torch.cuda.synchronize()
+            t0 = time.time()
+            JM._msm(pool, digits, curve)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.time() - t0))
         jac_ms = cuda_ms(torch, lambda: JM._msm(pool, digits, curve), 2)
         jac_dev, _, events = device_profile(torch, lambda: JM._msm(
             pool, digits, curve), 2, sum(per.values()))
         _only_kernels(events, JAC_KERNELS, f"Jacobian MSM {curve}")
         jac_bound = bound_ms(*_jac_msm_work(digits, curve))
+        _jac_form_checks(torch, pool, digits, curve, check, forms,
+                         rep.setdefault(f"{curve}_forms", {}))
+        if any(mismatches.values()):
+            raise AssertionError(f"Jacobian forms differ from their plain "
+                                 f"versions: {mismatches}")
         tp = MF._pool(pool, tape, curve)
         idx, _finals = MF._upload_tape(tape, dev)
         S, a0 = tape.S, tape.a0
@@ -2364,9 +2486,11 @@ def phase_engines(torch, dev, report):
                      "device_ms": tape_dev, "bound_ms": tape_bound[0],
                      "bound_by": tape_bound[1]},
             "jacobian": {"launches": per, "msm_wall_ms": t_jac,
+                         "msm_warm_wall_ms": walls,
                          "device_events_ms": jac_ms, "device_ms": jac_dev,
                          "bound_ms": jac_bound[0],
-                         "bound_by": jac_bound[1]},
+                         "bound_by": jac_bound[1],
+                         "bound_share": jac_bound[0] / jac_dev},
             "steps": {k: v for k, v in step_times.items()
                       if k.startswith(curve)}}
         log(f"engines {curve} {n} points: closed form = run-scan = tape = "
@@ -2374,14 +2498,30 @@ def phase_engines(torch, dev, report):
         del pool, prepared
     entries = []
     # no Pallas kernel stands behind them: "replaces" names the JAX
-    # package's XLA function
-    for name, line in (("jac_add", 168), ("jac_double", 151)):
-        e = jac[name]
+    # package's XLA function (ops/msm.py's steps over curve_ops.point_add)
+    for name, line in (("jac_scan", 110), ("jac_reduce", 163),
+                       ("jac_horner", 154)):
+        e = forms[name]
+        e["bound_ms"], e["bound_by"] = bound_ms(e["bytes"], e["ops"])
         entries.append(_entry(name, "zelana_tpu_torch/csrc/jac_kernels.cu",
-                              f"zelana_tpu/ops/curve_ops.py:{line}",
-                              e["err"], e["ms"], e["plain"], e["bound_ms"],
+                              f"zelana_tpu/ops/msm.py:{line}", e["err"],
+                              e["ms"], e["plain"], e["bound_ms"],
                               e["bound_by"]))
         entries[-1]["mismatches"] = mismatches[name]
+        if e["chain"]:
+            entries[-1]["dependent_products"] = e["chain"]
+        log(f"  {name} (G1 + G2; the scan step at offset 1 by events, the "
+            f"chains by device time): {e['ms']:.4f} ms, {e['plain']:.1f} ms "
+            f"plain, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+            f"{e['bound_ms'] / e['ms']:.1%} of it"
+            + (f"; {e['chain']} dependent Fq products, "
+               f"{1e3 * e['ms'] / e['chain']:.3f} us each" if e["chain"]
+               else ""))
+    entries.append(_entry("jac_add", "zelana_tpu_torch/csrc/jac_kernels.cu",
+                          "zelana_tpu/ops/curve_ops.py:168", jac_add["err"],
+                          jac_add["ms"], jac_add["plain"],
+                          jac_add["bound_ms"], jac_add["bound_by"]))
+    entries[-1]["mismatches"] = mismatches["jac_add"]
     rep["tape_launches"] = tape_runs
     rep["step_times"] = step_times
     log(f"engines: point kernel launches {launches}, step launches of the "
@@ -3661,10 +3801,10 @@ def _ntt_cross_kernel(torch, dev, rep) -> dict:
 
 
 def phase_mesh(torch, dev, report) -> tuple:
-    """Returns (ntt_cross's kernels-line entry, its launches over the
-    ranks' path). The ranks run over NCCL, rank r on card r, where the host
-    has MESH_WORLD cards, else over gloo on the one card (NCCL refuses two
-    ranks on one card)."""
+    """Returns (ntt_cross's kernels-line entry, the launches of ntt_cross
+    and jac_add, sharded_msm's combine, over the ranks' path). The ranks
+    run over NCCL, rank r on card r, where the host has MESH_WORLD cards,
+    else over gloo on the one card (NCCL refuses two ranks on one card)."""
     from zelana_tpu_torch.parallel import distributed as D
 
     cards = torch.cuda.device_count()
@@ -3694,9 +3834,11 @@ def phase_mesh(torch, dev, report) -> tuple:
         for name, t in r["times"].items():
             log(f"    {name}: {t['ms']:.1f} ms, of it collectives "
                 f"{t['comm_ms']:.1f} ms")
-    launches = sum(r["launches"].get("ntt_cross", 0) for r in ranks)
-    if launches == 0:
-        raise AssertionError("the mesh path launched no ntt_cross")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                for k in ("ntt_cross", "jac_add")}
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"the mesh path launched no {k}")
     return entry, launches
 
 

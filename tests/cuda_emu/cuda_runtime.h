@@ -40,10 +40,16 @@ typedef int cudaError_t;
 enum {
     cudaSuccess = 0,
     cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+    cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+    cudaSharedmemCarveoutMaxShared = 100,
     cudaErrorInvalidValue = 1,
     cudaErrorMisalignedAddress = 716
 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+    *dev = 0;
+    return cudaSuccess;
+}
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {
     return cudaSuccess;
@@ -83,6 +89,16 @@ inline void __syncthreads() {
     swapcontext(&emu_fibers[emu_cur], &emu_sched);
 }
 
+// the OR of the block's predicates at this barrier: each fiber adds its
+// own before it yields, and the round's OR is published when the round
+// ends, before any fiber resumes
+inline int emu_or_acc, emu_or_res;
+inline int __syncthreads_or(int pred) {
+    emu_or_acc |= pred != 0;
+    __syncthreads();
+    return emu_or_res;
+}
+
 inline void emu_entry() {
     (*emu_fn)();
     emu_done = true;  // uc_link returns to emu_sched
@@ -101,6 +117,7 @@ inline void emu_launch(unsigned grid, unsigned block, int bytes,
         blockIdx.x = b;
         emu_asyncs.assign(block, {});
         std::vector<char> finished(block, 0);
+        emu_or_acc = emu_or_res = 0;
         for (unsigned t = 0; t < block; ++t) {
             getcontext(&emu_fibers[t]);
             emu_fibers[t].uc_stack.ss_sp = emu_stacks[t].data();
@@ -124,6 +141,8 @@ inline void emu_launch(unsigned grid, unsigned block, int bytes,
                     --live;
                 }
             }
+            emu_or_res = emu_or_acc;
+            emu_or_acc = 0;
         }
     }
 }

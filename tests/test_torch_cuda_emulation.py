@@ -11,8 +11,10 @@ thread per element), inv_bwd in both of its (two threads a chain behind a
 cp.async ring; a suffix scan), both on inputs with zeros, the Poseidon
 kernel in its permute and sponge modes over the three configurations, and
 the NTT pass kernel (ntt_kernels.cu) pass by pass in every kind of transform, the
-sharded NTT's cross-rank stage (ntt_cross_kernel), and the Jacobian point
-kernels (jac_kernels.cu) on every case of point_add's mask dispatch. This holds
+sharded NTT's cross-rank stage (ntt_cross_kernel), and the Jacobian MSM's
+kernels (jac_kernels.cu: the batch add on every case of point_add's mask
+dispatch, a scan step, the bucket reduction and Horner, the doubling and
+identity branches among them). This holds
 the kernels' indexing, their barriers and their shared memory before a
 card sees them; the card runs the same comparison in chip_smoke.py. Equality is exact."""
 
@@ -33,6 +35,7 @@ from zelana_tpu_torch.ops import curve_ops as CO
 from zelana_tpu_torch.ops import cuda
 from zelana_tpu_torch.ops import field_kernels as FK
 from zelana_tpu_torch.ops import limbs as L
+from zelana_tpu_torch.ops import msm as M
 from zelana_tpu_torch.ops import ntt as NTT
 
 torch.set_num_threads(1)  # many small int64 ops: threads only contend
@@ -179,31 +182,142 @@ def test_emulated_merge_pairs_matches_plain(lib, curve, nb):
     assert torch.equal(merged, CK.bucket_merge_plain(ab, dense, 2, curve, nb))
 
 
-@pytest.mark.parametrize("curve,count,addend", [
-    ("g1", 0, True), ("g1", 3, True), ("g1", 2, False),
-    ("g2", 0, True), ("g2", 2, True), ("g2", 1, False)])
-def test_emulated_jac_kernels_match_plain(jlib, curve, count, addend):
-    """jac_add (count 0) and jac_double (count doublings, then the addend
-    or none) over 136 points: the eight mask cases of point_add
-    (curve_ops.MASK_CASES) seeded in, 17 each, a partial second block of
-    128 threads; p read through a row stride wider than its columns."""
-    rng = np.random.default_rng(101 + count + 8 * (curve == "g2"))
-    C, n = CK.rows(curve), 136
-    p, q = CO.seed_mask_cases(_rand_words(rng, C, n), _rand_words(rng, C, n),
-                              _rand_words(rng, C, n)[:C // 3], curve)
-    wide = torch.zeros((C, n + 40), dtype=torch.int32)
-    wide[:, :n] = p
-    got = torch.empty((C, n), dtype=torch.int32)
-    cid = 0 if curve == "g1" else 1
-    if count == 0:
+def _neg(words: torch.Tensor, curve: str) -> torch.Tensor:
+    return CO.join(CO.point_neg(CO.ops(curve), CO.split(words, curve)), curve)
+
+
+def _scan_case(rng, curve: str, offset: int):
+    """A scan step's operands: two windows of 150 lanes (300 lanes, a
+    partial last block of 32), digits drawn skewed (a run of about 120 lanes
+    crossing block boundaries) and sorted as the MSM sorts them, the run
+    positions of ops/msm.py scan_plan (digit 0's lanes at -1); general random words with point_add's
+    mask cases seeded into lane pairs (i, i - offset) of a run; dst holds
+    src where pos < offset // 2 (final lanes, not written) and junk
+    elsewhere."""
+    C, w, n = CK.rows(curve), 2, 150
+    keys = np.sort(rng.choice(4, size=(w, n), p=[0.05, 0.8, 0.1, 0.05]),
+                   axis=1)
+    pos = torch.from_numpy(M.scan_plan(keys)[0])
+    src = _rand_words(rng, C, w * n)
+    flat = pos.reshape(-1)
+    used, pairs = set(), []
+    for i in range(w * n):
+        if flat[i] >= offset and not {i, i - offset} & used:
+            used |= {i, i - offset}
+            pairs.append(i)
+    k = len(pairs)
+    p, q = CO.seed_mask_cases(_rand_words(rng, C, k), _rand_words(rng, C, k),
+                              _rand_words(rng, C, k)[:C // 3], curve)
+    idx = torch.tensor(pairs)
+    src[:, idx], src[:, idx - offset] = p, q
+    src = src.view(C, w, n)
+    junk = _rand_words(rng, C, w * n).view(C, w, n)
+    dst = torch.where((pos < offset // 2)[None], src, junk)
+    return src, dst, pos
+
+
+def _reduce_case(rng, curve: str):
+    """Two windows of 300 lanes and their (2, 256) run-end table. Window 0:
+    buckets 255, 253, 251 random, bucket 250 the running sum so far (the
+    doubling branch), 248 its negation (the identity), then every fourth
+    bucket random; window 1: only bucket 255, so total + running doubles at
+    d = 254 and every later add meets an identity."""
+    C, w, n = CK.rows(curve), 2, 300
+    vals = _rand_words(rng, C, w * n)
+    ends = torch.full((w, 256), -1, dtype=torch.int32)
+    lanes = iter(rng.permutation(w * n // 2).tolist())
+    running = CO.ident_words(curve, 1, "cpu")
+    for d in range(255, 0, -1):
+        if d in (255, 253, 251) or (d < 248 and d % 4 == 0):
+            s = _rand_words(rng, C, 1)
+        elif d == 250:
+            s = running
+        elif d == 248:
+            s = _neg(running, curve)
+        else:
+            continue
+        ends[0, d] = next(lanes)
+        vals[:, ends[0, d]] = s[:, 0]
+        if d >= 248:
+            running = CO.jac_add_plain(running, s, curve)
+    ends[1, 255] = n + next(lanes)
+    return vals.view(C, w, n), ends
+
+
+def _horner_case(rng, curve: str) -> torch.Tensor:
+    """32 window totals, random words with identities among them (windows
+    3, 17 and 0), T[30] = 2^8 T[31] (the add's doubling branch) and T[29]
+    = -2^8 acc (the identity)."""
+    C = CK.rows(curve)
+    tot = _rand_words(rng, C, 32)
+    ident = CO.ident_words(curve, 1, "cpu")[:, 0]
+    for w in (3, 17, 0):
+        tot[:, w] = ident
+    tot[:, 30] = CO.jac_double_plain(tot[:, 31:], curve, 8)[:, 0]
+    acc = CO.jac_double_plain(tot[:, 31:], curve, 8, tot[:, 30:31])
+    tot[:, 29] = _neg(CO.jac_double_plain(acc, curve, 8), curve)[:, 0]
+    return tot
+
+
+@pytest.mark.parametrize("curve,form", [
+    (c, f) for c in ("g1", "g2")
+    for f in ("add", "scan 1", "scan 64", "reduce", "horner")])
+def test_emulated_jac_kernels_match_plain(jlib, curve, form):
+    """The Jacobian MSM's kernels (jac_kernels.cu) against their plain
+    versions: the batch add over 136 points with point_add's eight mask
+    cases (curve_ops.MASK_CASES) seeded in, 17 each, a partial second
+    block, p read through a row stride wider than its columns; a scan step
+    at offsets 1 and 64 (_scan_case), and the lanes it leaves unwritten the
+    same as the CPU wrapper's; the bucket reduction over two windows
+    (_reduce_case); Horner over 32 totals (_horner_case)."""
+    rng = np.random.default_rng(
+        [101, int(curve == "g2"), ["add", "scan 1", "scan 64", "reduce",
+                              "horner"].index(form)])
+    C, cid = CK.rows(curve), 0 if curve == "g1" else 1
+    if form == "add":
+        n = 136
+        p, q = CO.seed_mask_cases(_rand_words(rng, C, n),
+                                  _rand_words(rng, C, n),
+                                  _rand_words(rng, C, n)[:C // 3], curve)
+        wide = torch.zeros((C, n + 40), dtype=torch.int32)
+        wide[:, :n] = p
+        got = torch.empty((C, n), dtype=torch.int32)
         assert jlib.zt_jac_add(cid, wide.data_ptr(), n + 40, q.data_ptr(), n,
                                got.data_ptr(), n, None) == 0
         want = CO.jac_add_plain(p, q, curve)
+    elif form.startswith("scan"):
+        offset = int(form.split()[1])
+        src, got, pos = _scan_case(rng, curve, offset)
+        assert jlib.zt_jac_scan(cid, src.data_ptr(), got.data_ptr(),
+                                pos.data_ptr(), pos.numel(), offset,
+                                None) == 0
+        want = CO.jac_scan_step_plain(src, pos, offset, curve)
+        assert (pos >= offset).sum() > 60  # lanes that add
+        assert (pos < 0).sum() > 0  # digit 0's lanes
+        # the lanes left unwritten are the same ones on either device
+        junk = _rand_words(rng, C, pos.numel()).view_as(src)
+        emu, cpu = junk.clone(), junk.clone()
+        assert jlib.zt_jac_scan(cid, src.data_ptr(), emu.data_ptr(),
+                                pos.data_ptr(), pos.numel(), offset,
+                                None) == 0
+        assert torch.equal(emu, CO.jac_scan_step(src, cpu, pos, offset,
+                                                 curve))
+    elif form == "reduce":
+        vals, ends = _reduce_case(rng, curve)
+        got = torch.zeros((C, 3), dtype=torch.int32)  # windows in columns 1, 2
+        assert jlib.zt_jac_reduce(cid, vals.data_ptr(), vals[0].numel(),
+                                  ends.data_ptr(), 2, got[:, 1:].data_ptr(),
+                                  3, None) == 0
+        got = got[:, 1:]
+        want = CO.jac_bucket_reduce_plain(vals, ends, curve)
     else:
-        assert jlib.zt_jac_double(
-            cid, wide.data_ptr(), n + 40, q.data_ptr() if addend else None,
-            n, got.data_ptr(), n, count, None) == 0
-        want = CO.jac_double_plain(p, curve, count, q if addend else None)
+        tot = _horner_case(rng, curve)
+        wide = torch.zeros((C, 40), dtype=torch.int32)
+        wide[:, :32] = tot
+        got = torch.empty((C, 1), dtype=torch.int32)
+        assert jlib.zt_jac_horner(cid, wide.data_ptr(), 40, 32,
+                                  got.data_ptr(), None) == 0
+        want = CO.jac_horner_plain(tot, curve)
     assert torch.equal(got, want)
 
 

@@ -1,9 +1,12 @@
 """The Jacobian point ops and windowed MSM of the port
 (zelana_tpu_torch.ops.curve_ops, ops/msm.py; device="cpu", the kernels'
-plain versions) against the JAX package's curve_ops and the host MSMs.
-Equality is exact: coordinates word for word, MSM results as points."""
+plain versions) against the JAX package's curve_ops, the host MSMs and
+the JAX MSM's recorded words. Equality is exact: coordinates word for
+word, MSM results as points and as words."""
 
-import random
+import json
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,11 @@ from zelana_tpu_torch.ops import limbs as L
 from zelana_tpu_torch.ops import msm as M
 
 torch.set_num_threads(1)  # many small int64 ops: threads only contend
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTDATA = os.path.join(ROOT, "zelana_tpu_torch", "testdata")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+from record_service_vectors import jac_msm_inputs  # noqa: E402
 
 
 def _jacobian_points(curve: str, n: int, rng) -> torch.Tensor:
@@ -83,7 +91,7 @@ def test_point_ops_match_jax(curve, op):
         got = CO.jac_add(p, q, curve)
         want = JC.point_add(JF, _to_jax(p, curve), _to_jax(q, curve))
     else:
-        got = CO.jac_double(p, curve)
+        got = CO.jac_double_plain(p, curve)
         want = JC.point_double(JF, _to_jax(p, curve))
     assert np.array_equal(L.to_numpy(got), _from_jax(want, curve))
     # and through the plain formulas on coordinate triples
@@ -95,55 +103,54 @@ def test_point_ops_match_jax(curve, op):
 
 
 def test_jac_double_count_and_addend():
-    """jac_double(p, count, addend) = count point_doubles, then point_add;
-    count 0 is a plain add."""
+    """jac_double_plain(p, count, addend) = count point_doubles, then
+    point_add (the Horner step's plain version); count 0 is a plain add."""
     rng = np.random.default_rng(3)
     p = _jacobian_points("g1", 4, rng)
     q = _jacobian_points("g1", 4, rng)
     want = p
     for _ in range(3):
-        want = CO.jac_double(want, "g1")
-    assert torch.equal(CO.jac_double(p, "g1", 3, q),
+        want = CO.jac_double_plain(want, "g1")
+    assert torch.equal(CO.jac_double_plain(p, "g1", 3, q),
                        CO.jac_add(want, q, "g1"))
-    assert torch.equal(CO.jac_double(p, "g1", 0, q), CO.jac_add(p, q, "g1"))
+    assert torch.equal(CO.jac_double_plain(p, "g1", 0, q),
+                       CO.jac_add(p, q, "g1"))
     with pytest.raises(ValueError):
-        CO.jac_double(p, "g1", -1)
+        CO.jac_double_plain(p, "g1", -1)
 
 
 def _g1_edges():
     """tests/test_msm.py:100-114's inputs: 24 points with a zero scalar,
     an identity point and P + (-P)."""
-    rng = random.Random(99)
-    g = G1.generator()
-    points = [G1.mul(g, rng.randrange(1, R)) for _ in range(24)]
-    scalars = [rng.randrange(R) for _ in range(24)]
-    scalars[3] = 0
-    points[5] = None
-    points[10] = G1.neg(points[9])
-    scalars[10] = scalars[9]
-    return points, scalars
+    return jac_msm_inputs(G1, G2, R)["g1_edges"]
 
 
 def _g1_single():
-    rng = random.Random(98)
-    return [G1.generator()], [rng.randrange(R)]
+    return jac_msm_inputs(G1, G2, R)["g1_single"]
 
 
 def _g2_small():
-    rng = random.Random(97)
-    g = G2.generator()
-    return ([G2.mul(g, rng.randrange(1, 10**6)) for _ in range(4)],
-            [rng.randrange(R) for _ in range(4)])
+    return jac_msm_inputs(G1, G2, R)["g2_small"]
 
 
 @pytest.mark.parametrize("inputs", [_g1_edges, _g1_single, _g2_small])
-def test_jacobian_msm_matches_host(inputs):
+def test_jacobian_msm_matches_host(inputs, monkeypatch):
     """ops/msm.py on the inputs of tests/test_msm.py:81-135 (each padded
-    to 16 or 32 points) against the host MSM."""
+    to 16 or 32 points) against the host MSM, and its (C, 1) Jacobian
+    words, from the same run, against the JAX _msm's on those inputs
+    (testdata/jac_msm_words.json, tools/record_service_vectors.py
+    jac_msm)."""
     points, scalars = inputs()
     curve = "g2" if isinstance(points[0][0], tuple) else "g1"
     G = G1 if curve == "g1" else G2
     want = G.msm([p for p in points if p is not None],
                  [s for p, s in zip(points, scalars) if p is not None])
+    words = []
+    run = M._msm
+    monkeypatch.setattr(M, "_msm", lambda *a: words.append(run(*a))
+                        or words[-1])
     msm = M.msm_g1 if curve == "g1" else M.msm_g2
     assert msm(points, scalars, device="cpu") == want
+    with open(os.path.join(TESTDATA, "jac_msm_words.json")) as f:
+        vec = json.load(f)[inputs.__name__[1:]]
+    assert L.to_numpy(words[0]).reshape(-1).tolist() == vec

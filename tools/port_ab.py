@@ -4,6 +4,7 @@
     python3 tools/port_ab.py --parent build/parent   # from the repo root
     python3 tools/port_ab.py --parent build/parent --parts inversion
     python3 tools/port_ab.py --parent build/parent --parts hashes
+    python3 tools/port_ab.py --parent build/parent --parts jac
 
 Runs the parent checkout, this one, this one again and the parent again
 (each in its own process, which builds that checkout's kernels into its own
@@ -31,7 +32,12 @@ from a fixed seed (`--parts`, default all):
   - hashes: hashes.poseidon_batch.poseidon_hash_batch over two columns,
     BN254 8/56 at 2^15 and BN254 8/57 / BLS12-381 8/57 at 2^12, by CUDA
     events (the host's launch gaps included), and the port's launches a
-    call.
+    call;
+  - jac: ops.msm._msm, the Jacobian windowed MSM, at 2^16 points per curve
+    (a pool that tiles 4,096 multiples of the generator, scalars below
+    2^253), by the host clock around a synchronized call, by CUDA events
+    over back-to-back calls and by device time, and the port's launches
+    a call.
 
 Both checkouts must expose those functions with the same signatures.
 """
@@ -52,7 +58,7 @@ from chip_smoke import cuda_ms, device_ms, device_profile  # noqa: E402
 ORDER = ("parent", "change", "change", "parent")
 
 
-PARTS = ("keygen", "msm", "inversion", "ntt", "hashes")
+PARTS = ("keygen", "msm", "inversion", "ntt", "hashes", "jac")
 
 
 def measure(root: str, parts) -> dict:
@@ -80,6 +86,8 @@ def measure(root: str, parts) -> dict:
         out.update(measure_ntt(torch, np, dev))
     if "hashes" in parts:
         out.update(measure_hashes(torch, np, dev))
+    if "jac" in parts:
+        out.update(measure_jac(torch, np, dev))
     if "keygen" not in parts and "msm" not in parts:
         out["device"] = torch.cuda.get_device_name(0)
         return out
@@ -221,6 +229,49 @@ def measure_hashes(torch, np, dev) -> dict:
         fn()
         torch.cuda.synchronize()
         out[f"poseidon_{key}_launches"] = sum(cuda.LAUNCHES.values())
+    return out
+
+
+def measure_jac(torch, np, dev) -> dict:
+    """The Jacobian MSM through the function both checkouts expose, on
+    inputs from a fixed seed."""
+    import time
+
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import msm as JM
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    rng = np.random.default_rng(7)
+    n = MSM.CHUNK_N
+    limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+    limbs[:, 3] >>= np.uint64(2)
+    digits = MSM.scalar_digits(limbs)
+    out = {}
+    for curve, G, prep in (("g1", G1, MSM.prepare_g1),
+                           ("g2", G2, MSM.prepare_g2)):
+        pts, acc = [], G.generator()
+        for _ in range(4096):
+            pts.append(acc)
+            acc = G.add(acc, G.generator())
+        pool = prep(pts, dev)[0].repeat(1, n // 4096).contiguous()
+        fn = lambda: JM._msm(pool, digits, curve)  # noqa: E731
+        fn()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[f"jac_msm_{curve}_wall_ms"] = min(walls)
+        out[f"jac_msm_{curve}_events_ms"] = cuda_ms(torch, fn, 3)
+        out[f"jac_msm_{curve}_device_ms"] = device_ms(torch, fn, 2)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[f"jac_msm_{curve}_launches"] = sum(cuda.LAUNCHES.values())
     return out
 
 

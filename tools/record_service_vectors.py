@@ -1,7 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
-        [cubic] [pipeline] [cli] [shielded]
+        [cubic] [pipeline] [cli] [shielded] [jac_msm]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -50,11 +50,21 @@
   serialization and its compressed verifying key, the compressed proof
   and its 256 Solana bytes.
 
+- ``zelana_tpu_torch/testdata/jac_msm_words.json``: the (C, 1) Jacobian
+  words of the JAX ``ops.msm._msm`` (the segmented-scan MSM under
+  ``msm_g1`` / ``msm_g2``) on the inputs of
+  tests/test_torch_curve_ops.py::test_jacobian_msm_matches_host (the
+  inputs of tests/test_msm.py: 24 G1 points with a zero scalar, an
+  identity point and P + (-P); one G1 point; four G2 points), each padded
+  as ``msm_g1`` pads it; rows X | Y | Z (G2: X.c0, X.c1, ...) of 32-bit
+  words, about a minute of XLA on the CPU.
+
 The port is held against these files by tests/test_torch_prover_service.py,
 tests/test_torch_sharded.py, tests/test_torch_sequencer.py,
 tests/test_torch_cli.py and tests/test_torch_shielded.py (on the CPU) and
 by chip_smoke.py's ``services``, ``sequencer``, ``cli`` and ``shielded``
-phases (on the card).
+phases (on the card); the Jacobian MSM's words by
+tests/test_torch_curve_ops.py.
 """
 
 from __future__ import annotations
@@ -479,6 +489,49 @@ def record_shielded() -> None:
     _write("shielded_proof.json", out)
 
 
+def jac_msm_inputs(G1, G2, R) -> dict:
+    """tests/test_msm.py:81-135's MSM inputs, from the curve modules given
+    (the JAX package's or the port's): {name: (points, scalars)}."""
+    import random
+
+    rng = random.Random(99)
+    g = G1.generator()
+    points = [G1.mul(g, rng.randrange(1, R)) for _ in range(24)]
+    scalars = [rng.randrange(R) for _ in range(24)]
+    scalars[3] = 0
+    points[5] = None
+    points[10] = G1.neg(points[9])
+    scalars[10] = scalars[9]
+    rng1, rng2 = random.Random(98), random.Random(97)
+    return {"g1_edges": (points, scalars),
+            "g1_single": ([G1.generator()], [rng1.randrange(R)]),
+            "g2_small": ([G2.mul(G2.generator(), rng2.randrange(1, 10**6))
+                          for _ in range(4)],
+                         [rng2.randrange(R) for _ in range(4)])}
+
+
+def record_jac_msm() -> None:
+    import numpy as np
+
+    from zelana_tpu.curves import g1 as G1, g2 as G2
+    from zelana_tpu.fields.bn254 import R
+    from zelana_tpu.ops import msm as M
+
+    out = {"recorded_with": f"{CMD} jac_msm (zelana_tpu.ops.msm._msm)"}
+    for name, (points, scalars) in jac_msm_inputs(G1, G2, R).items():
+        curve = name[:2]
+        points, scalars = M._pad_pow2(points, scalars)
+        to_device = (M.g1_points_to_device if curve == "g1"
+                     else M.g2_points_to_device)
+        coords, inf = to_device(points)
+        jac = M._msm(coords, M.scalar_digits(scalars, inf), curve)
+        leaves = jac if curve == "g1" else [c for pair in jac for c in pair]
+        words = [np.asarray(x, np.uint32) for x in leaves]  # 16-bit limbs
+        out[name] = [int(lo | hi << 16) for w in words
+                     for lo, hi in zip(w[0::2, 0], w[1::2, 0])]
+    _write("jac_msm_words.json", out)
+
+
 def _write(name: str, obj: dict) -> None:
     with open(os.path.join(TESTDATA, name), "w") as f:
         json.dump(obj, f, indent=1)
@@ -488,7 +541,7 @@ def _write(name: str, obj: dict) -> None:
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline", "cli",
-                             "shielded"]
+                             "shielded", "jac_msm"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
@@ -501,3 +554,5 @@ if __name__ == "__main__":
         record_cli()
     if "shielded" in which:
         record_shielded()
+    if "jac_msm" in which:
+        record_jac_msm()

@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"mont_mul": 0, "ntt_pass": 0, "ntt_cross": 0, "runscan": 0,
             "bucket_tail": 0, "step": 0, "mimc_permute": 0, "poseidon": 0,
             "inv_fwd": 0, "inv_bwd": 0, "inv_base": 0, "jac_add": 0,
-            "jac_double": 0}
+            "jac_scan": 0, "jac_reduce": 0, "jac_horner": 0}
 BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
@@ -120,7 +120,9 @@ def _declare(cdll) -> None:
         "zt_inv_base": [i, p, p, l, p],
         "zt_inv_scan_below": [i],
         "zt_jac_add": [i, p, l, p, l, p, l, p],
-        "zt_jac_double": [i, p, l, p, l, p, l, i, p],
+        "zt_jac_scan": [i, p, p, p, l, i, p],
+        "zt_jac_reduce": [i, p, l, p, i, p, l, p],
+        "zt_jac_horner": [i, p, l, i, p, p],
     }
     for fn, args in sigs.items():
         if hasattr(cdll, fn):

@@ -8,20 +8,25 @@ and G2 over Fq2, each beside its kernel.
   plain versions, transcribed from the JAX package's curve_ops.py.
 - ``jac_add(p, q, curve)``: p + q over a batch of points; CUDA kernel
   ``csrc/jac_kernels.cu: jac_add_kernel``.
-- ``jac_double(p, curve, count, addend)``: 2^count p (+ addend); CUDA
-  kernel ``jac_double_kernel``, so the MSM's Horner step (8 doublings and
-  an add) is one launch.
+- The MSM's three forms, one launch each: ``jac_scan_step`` (one step of
+  the segmented Hillis-Steele scan, its keep mask from run positions;
+  ``jac_scan_kernel``), ``jac_bucket_reduce`` (the descending running sum
+  over buckets 255..1 of each window, all 510 adds; ``jac_reduce_kernel``)
+  and ``jac_horner`` (eight doublings and an add a window, high to low;
+  ``jac_horner_kernel``). Each kernel shares its adds and doublings among
+  a team of threads (the file's header says how).
 
-The JAX versions are XLA programs (no Pallas kernel stands behind them);
-on the card each batch operation is one kernel launch here, as XLA makes it
-one program on the TPU.
+The JAX versions are XLA programs (no Pallas kernel stands behind them).
+Each form has its plain version here (``*_plain``): the JAX package's
+rolls, selects and loops over point_add / point_double, which the wrappers
+run on CPU tensors; on CUDA tensors they launch the kernel or raise.
 
 A point is a coordinate triple (X, Y, Z) with Z == 0 encoding infinity;
 the identity is (0 : one : 0). In the plain versions coordinates
 are (16, *B) int64 limbs of Montgomery forms (G1, ``FqOps``; ops/limbs.py)
 or (c0, c1) pairs of them (G2, ``Fq2Ops``). The kernels' wrappers take
-words-first (C, n) int32 tensors, rows X | Y | Z: C = 24 for G1, 48 for G2
-(X.c0, X.c1, Y.c0, ...); ``split`` and ``join`` convert.
+words-first (C, ...) int32 tensors, rows X | Y | Z: C = 24 for G1, 48 for
+G2 (X.c0, X.c1, Y.c0, ...); ``split`` and ``join`` convert.
 
 A plain field op costs about the same for one element as for a few
 hundred, so each field op takes operands stacked along a new batch
@@ -299,6 +304,10 @@ def jac_add_plain(p: torch.Tensor, q: torch.Tensor,
 
 def jac_double_plain(p: torch.Tensor, curve: str, count: int = 1,
                      addend: torch.Tensor = None) -> torch.Tensor:
+    """2^count p (count point_doubles), then + addend (point_add) where one
+    is given, of each column of (C, n) Jacobian words."""
+    if count < 0:
+        raise ValueError(f"jac_double_plain: count must be >= 0, got {count}")
     F = ops(curve)
     acc = split(p, curve)
     for _ in range(count):
@@ -306,6 +315,47 @@ def jac_double_plain(p: torch.Tensor, curve: str, count: int = 1,
     if addend is not None:
         acc = point_add(F, acc, split(addend, curve))
     return join(acc, curve)
+
+
+WINDOW_BITS = 8  # the Horner's doublings a window (ops/msm.py's windows)
+
+
+def jac_scan_step_plain(src: torch.Tensor, pos: torch.Tensor, offset: int,
+                        curve: str) -> torch.Tensor:
+    """One Hillis-Steele step of the segmented scan along the rows of (C, W,
+    N) words: lane i adds lane i - offset (point_add(lane i, lane i -
+    offset)) unless pos < offset, its run position (i - the start of its
+    run): the run starts within reach, or i < offset."""
+    C = src.shape[0]
+    shifted = torch.roll(src, offset, dims=-1)
+    summed = jac_add_plain(src.reshape(C, -1), shifted.reshape(C, -1), curve)
+    return torch.where((pos < offset)[None], src, summed.view_as(src))
+
+
+def jac_bucket_reduce_plain(vals: torch.Tensor, ends: torch.Tensor,
+                            curve: str) -> torch.Tensor:
+    """Descending running sum over buckets B-1..1 of each window, batched
+    across the windows: (C, W) words of sum_d d * S_d, S_d the scan's
+    words (C, W, N) at the end of digit d's run (ends (W, B) lanes; -1:
+    empty, zeros, infinity)."""
+    e = ends.long()
+    sums = vals.reshape(vals.shape[0], -1)[:, e.clamp(min=0)]
+    sums = sums * (e >= 0).to(sums.dtype)
+    running = total = ident_words(curve, vals.shape[1], vals.device)
+    for d in range(ends.shape[1] - 1, 0, -1):
+        running = jac_add_plain(running, sums[:, :, d].contiguous(), curve)
+        total = jac_add_plain(total, running, curve)
+    return total
+
+
+def jac_horner_plain(totals: torch.Tensor, curve: str) -> torch.Tensor:
+    """(C, W) window totals -> the (C, 1) words of sum_w 2^(8 w) T[w]:
+    acc = T[W-1], then WINDOW_BITS doublings and + T[w], w = W-2..0."""
+    W = totals.shape[1]
+    acc = totals[:, W - 1:]
+    for w in range(W - 2, -1, -1):
+        acc = jac_double_plain(acc, curve, WINDOW_BITS, totals[:, w:w + 1])
+    return acc
 
 
 MASK_CASES = ("general", "p at infinity", "q at infinity", "both at "
@@ -375,25 +425,69 @@ def jac_add(p: torch.Tensor, q: torch.Tensor, curve: str) -> torch.Tensor:
     return out
 
 
-def jac_double(p: torch.Tensor, curve: str, count: int = 1,
-               addend: torch.Tensor = None) -> torch.Tensor:
-    """2^count p (count point_doubles), then + addend (point_add) where one
-    is given, of each column of (C, n) Jacobian words; a new contiguous
-    (C, n) tensor."""
-    if count < 0:
-        raise ValueError(f"jac_double: count must be >= 0, got {count}")
-    if p.device.type == "cpu" and (addend is None
-                                   or addend.device.type == "cpu"):
-        return jac_double_plain(p, curve, count, addend)
-    dev = _check_points([p] if addend is None else [p, addend], curve,
-                        "jac_double")
-    n = p.shape[1]
-    out = torch.empty((CK.rows(curve), n), dtype=torch.int32, device=dev)
-    if n:
-        cuda.launch("jac_kernels", "zt_jac_double",
-                    0 if curve == "g1" else 1, p.data_ptr(), p.stride(0),
-                    None if addend is None else addend.data_ptr(),
-                    0 if addend is None else addend.stride(0),
-                    out.data_ptr(), n, count, device=dev)
-        cuda.LAUNCHES["jac_double"] += 1
+def jac_scan_step(src: torch.Tensor, dst: torch.Tensor, pos: torch.Tensor,
+                  offset: int, curve: str) -> torch.Tensor:
+    """One step of the segmented scan (jac_scan_step_plain) from src into
+    dst, two (C, W, N) word buffers; pos (W, N) int32 run positions.
+    Returns dst. On either device only the lanes with pos >= offset // 2
+    are written: the lanes below are final since an earlier step (or, at
+    pos -1, never read), and a scan that swaps the two buffers step by step
+    from offset 1 already holds them in both."""
+    if offset < 1:
+        raise ValueError(f"jac_scan_step: offset must be >= 1, got {offset}")
+    if src.device.type == "cpu" and dst.device.type == "cpu":
+        w = (pos >= offset // 2)[None].expand_as(dst)
+        dst[w] = jac_scan_step_plain(src, pos, offset, curve)[w]
+        return dst
+    C, W, N = CK.rows(curve), pos.shape[0], pos.shape[-1]
+    dev = cuda.check([src, dst, pos], [(C, W, N), (C, W, N), (W, N)],
+                     "jac_scan_step")
+    if src.data_ptr() == dst.data_ptr():
+        raise ValueError("jac_scan_step: src and dst must be two buffers")
+    if W * N:
+        cuda.launch("jac_kernels", "zt_jac_scan", 0 if curve == "g1" else 1,
+                    src.data_ptr(), dst.data_ptr(), pos.data_ptr(), W * N,
+                    offset, device=dev)
+        cuda.LAUNCHES["jac_scan"] += 1
+    return dst
+
+
+def jac_bucket_reduce(vals: torch.Tensor, ends: torch.Tensor,
+                      out: torch.Tensor, curve: str) -> torch.Tensor:
+    """jac_bucket_reduce_plain of (C, W, N) scan words and (W, 256) int32
+    run-end lanes into out, (C, W) words with a row stride of its own (a
+    column slice of the MSM's window totals); one launch, a block a
+    window. Returns out."""
+    if vals.device.type == "cpu" and out.device.type == "cpu":
+        return out.copy_(jac_bucket_reduce_plain(vals, ends, curve))
+    C, W, N = CK.rows(curve), ends.shape[0], vals.shape[-1]
+    dev = cuda.check([vals, ends], [(C, W, N), (W, 256)],
+                     "jac_bucket_reduce")
+    _check_points([out], curve, "jac_bucket_reduce out")
+    if out.device != dev or out.shape[1] != W:
+        raise ValueError(f"jac_bucket_reduce: out must be ({C}, {W}) on "
+                         f"{dev}, got {tuple(out.shape)} on {out.device}")
+    if W:
+        cuda.launch("jac_kernels", "zt_jac_reduce", 0 if curve == "g1" else 1,
+                    vals.data_ptr(), W * N, ends.data_ptr(), W,
+                    out.data_ptr(), out.stride(0), device=dev)
+        cuda.LAUNCHES["jac_reduce"] += 1
+    return out
+
+
+def jac_horner(totals: torch.Tensor, curve: str) -> torch.Tensor:
+    """jac_horner_plain of (C, W) window totals (a row stride of its own
+    allowed, 1 <= W <= 64): the (C, 1) words of sum_w 2^(8 w) T[w], one
+    launch on one team."""
+    if totals.device.type == "cpu":
+        return jac_horner_plain(totals, curve)
+    dev = _check_points([totals], curve, "jac_horner")
+    W = totals.shape[1]
+    if not 1 <= W <= 64:
+        raise ValueError(f"jac_horner: 1 to 64 windows, got {W}")
+    out = torch.empty((CK.rows(curve), 1), dtype=torch.int32, device=dev)
+    cuda.launch("jac_kernels", "zt_jac_horner", 0 if curve == "g1" else 1,
+                totals.data_ptr(), totals.stride(0), W, out.data_ptr(),
+                device=dev)
+    cuda.LAUNCHES["jac_horner"] += 1
     return out

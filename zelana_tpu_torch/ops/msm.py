@@ -1,29 +1,31 @@
 """Pippenger MSM by windows over Jacobian point kernels, on the card.
 
 The JAX package's segmented-scan MSM (zelana_tpu/ops/msm.py), the MSM that
-its multi-chip path builds on:
+its multi-chip path builds on, with its adds in its order:
 
 1. window decomposition: 8-bit digits, 32 windows over the 254-bit scalar
    (msm_scan.scalar_digits)
 2. per-window bucket sums without a scatter-add: the points of each window
    sorted by digit (host), then a segmented Hillis-Steele scan over the
-   sorted rows (log2 N steps, each one point add over all lanes), the end
-   of each digit's run scattered into its bucket; windows go in chunks of
-   at most 2^20 lanes
-   (the scan's masks follow from the digits alone, so the host makes
-   them)
-3. bucket reduction: the descending running sum over buckets 255..1,
-   batched across the windows (510 point adds)
-4. window combine: Horner, 8 doublings and an add per window, one launch
+   sorted rows, each step one point add over the lanes whose run starts
+   beyond reach; windows go in chunks of at most 2^20 lanes. The keep mask
+   follows from the digits alone: the host uploads one run position a lane
+   (i - the start of its run; -1 for digit 0, whose sum is dropped) and
+   runs ceil(log2(longest run)) steps, after which every lane is kept
+3. bucket reduction: the descending running sum over buckets 255..1 of
+   each window (510 point adds), S_d read at the end of digit d's run
+4. window combine: Horner, 8 doublings and an add per window
 
-Every point operation is a kernel of ops/curve_ops.py (``jac_add``,
-``jac_double``); gathers, rolls, masks and scatters are torch ops. On CPU
-tensors the kernels' plain versions run.
+Steps 2-4 are the forms of ops/curve_ops.py: ``jac_scan_step`` a launch a
+step, ``jac_bucket_reduce`` a launch a chunk (on a stream of its own, so
+that a chunk's reduction, a block a window, runs beside the next chunk's
+scan), ``jac_horner`` one launch; the points' gather is a torch op, the
+sort order, run positions and run ends go up through pinned memory. On
+CPU tensors the forms' plain versions run. The result's words are the JAX
+_msm's.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -34,8 +36,9 @@ from . import curve_kernels as CK
 from . import curve_ops as CO
 from . import limbs as L
 from . import msm_scan
+from . import staging
 
-WINDOW_BITS = 8
+WINDOW_BITS = CO.WINDOW_BITS
 N_WINDOWS = (254 + WINDOW_BITS - 1) // WINDOW_BITS  # 32
 N_BUCKETS = 1 << WINDOW_BITS  # bucket 0 is the trash bucket
 LANE_BUDGET = 1 << 20  # lanes (window rows x points) a scan chunk holds
@@ -51,68 +54,34 @@ def _k_gather_points(pool: torch.Tensor, order: torch.Tensor,
     """pool (VC, N) affine words, order (W, N) -> (C, W, N) Jacobian words
     of the sorted points, Z = one."""
     C, VC = CK.rows(curve), pool.shape[0]
-    vals = pool.index_select(1, order.view(-1)).view(VC, *order.shape)
+    out = torch.empty((C,) + tuple(order.shape), dtype=pool.dtype,
+                      device=pool.device)
+    torch.index_select(pool, 1, order.view(-1), out=out[:VC].view(VC, -1))
     one = CO.ident_words(curve, 1, pool.device)[C // 3:2 * C // 3]
-    return torch.cat([vals, one.view(-1, 1, 1).expand(C - VC, *order.shape)])
+    out[VC:] = one.view(-1, 1, 1)
+    return out
 
 
-def _k_seg_scan_step(vals: torch.Tensor, keep: torch.Tensor, curve: str,
-                     offset: int) -> torch.Tensor:
-    """One Hillis-Steele segmented-scan step along the last axis: each lane
-    adds the lane `offset` before it unless `keep` (its run starts within
-    reach, or the lane is out of range)."""
-    C = vals.shape[0]
-    shifted = torch.roll(vals, offset, dims=-1)
-    combined = CO.jac_add(vals.view(C, -1), shifted.view(C, -1),
-                          curve).view_as(vals)
-    return torch.where(keep[None], vals, combined)
-
-
-def _scan_keeps(starts: np.ndarray, log_n: int) -> np.ndarray:
-    """(log_n, W, N) bool: the keep mask of each scan step, flags | ~valid,
-    with the flags' own scan, flags | (roll(flags) & valid), run on the
-    host (they follow from the digits alone)."""
-    n = starts.shape[-1]
-    flags = starts
-    keeps = np.empty((log_n,) + starts.shape, bool)
-    for k in range(log_n):
-        valid = np.arange(n) >= 1 << k
-        keeps[k] = flags | ~valid
-        flags = flags | (np.roll(flags, 1 << k, axis=-1) & valid)
-    return keeps
-
-
-def _k_scatter_buckets(vals: torch.Tensor, ends: np.ndarray,
-                       keys: np.ndarray) -> torch.Tensor:
-    """Segment-end values -> (C, N_BUCKETS, W) bucket words, bucket d of
-    every window at [:, d]. The end of each nonzero digit's run lands in
-    its bucket; bucket 0 (the trash bucket) and the empty buckets stay zero
-    (Z = 0: infinity)."""
-    C, w, n = vals.shape
-    win, pos = np.nonzero(ends & (keys != 0))
-    src = torch.from_numpy(win * n + pos).to(vals.device)
-    dst = torch.from_numpy(keys[win, pos] * w + win).to(vals.device)
-    out = torch.zeros((C, N_BUCKETS * w), dtype=vals.dtype,
-                      device=vals.device)
-    out.index_copy_(1, dst, vals.view(C, -1).index_select(1, src))
-    return out.view(C, N_BUCKETS, w)
-
-
-def _k_bucket_reduce(buckets: torch.Tensor, curve: str) -> torch.Tensor:
-    """Descending running sum over buckets 255..1, all windows batched:
-    sum_d d * S_d per window, (C, W) words."""
-    inf_w = CO.ident_words(curve, buckets.shape[2], buckets.device)
-    running = total = inf_w
-    for d in range(N_BUCKETS - 1, 0, -1):
-        running = CO.jac_add(running, buckets[:, d], curve)
-        total = CO.jac_add(total, running, curve)
-    return total
-
-
-def _k_double8_add(acc: torch.Tensor, wnd: torch.Tensor,
-                   curve: str) -> torch.Tensor:
-    """acc := 2^WINDOW_BITS * acc + wnd (the Horner step), one launch."""
-    return CO.jac_double(acc, curve, count=WINDOW_BITS, addend=wnd)
+def scan_plan(digits: np.ndarray):
+    """digits (W, N) -> (pos, ends, steps) of the rows sorted by digit,
+    from each row's digit counts: pos (W, N) int32, each sorted lane's
+    place in its digit's run, -1 in digit 0's run (the trash bucket: its
+    lanes neither add nor are read); ends (W, N_BUCKETS) int32, the lane
+    (w * N + i) where nonzero digit d's run ends, -1 where the window has
+    no such digit; steps, the scan steps the longest nonzero digit's run
+    needs."""
+    w, n = digits.shape
+    counts = np.stack([np.bincount(row, minlength=N_BUCKETS)
+                       for row in digits])
+    first = np.cumsum(counts, axis=1) - counts  # each run's first lane
+    pos = np.empty((w, n), np.int32)
+    for r in range(w):
+        pos[r] = np.arange(n) - np.repeat(first[r], counts[r])
+        pos[r, :counts[r, 0]] = -1
+    ends = np.where(counts > 0, first + counts - 1
+                    + n * np.arange(w)[:, None], -1).astype(np.int32)
+    ends[:, 0] = -1
+    return pos, ends, max(int(counts[:, 1:].max()) - 1, 0).bit_length()
 
 
 # ---------------------------------------------------------------------------
@@ -121,46 +90,59 @@ def _k_double8_add(acc: torch.Tensor, wnd: torch.Tensor,
 
 
 def _window_chunk(n: int) -> int:
-    """Windows per device pass: the scan holds a few (C, chunk * n) point
-    tensors, so LANE_BUDGET lanes bound its memory (0.2 GB a G2 tensor)."""
+    """Windows per device pass: the scan holds two (C, chunk * n) point
+    buffers, so LANE_BUDGET lanes bound its memory (0.2 GB a G2 buffer)."""
     return max(1, min(N_WINDOWS, LANE_BUDGET // max(n, 1)))
+
+
+def _window_totals(pool: torch.Tensor, digits_np: np.ndarray,
+                   curve: str) -> torch.Tensor:
+    """pool (VC, N) affine words, digits (W, N) -> the (C, N_WINDOWS)
+    Jacobian words of the windows' sums sum_d d * S_d."""
+    dev = pool.device
+
+    # host-side sort per window: stable, on 8-bit keys (a radix sort, the
+    # same order as on the int32 digits)
+    order_all = np.argsort(digits_np.astype(np.uint8), axis=1,
+                           kind="stable")
+
+    chunk = _window_chunk(digits_np.shape[1])
+    totals = torch.empty((CK.rows(curve), N_WINDOWS), dtype=torch.int32,
+                         device=dev)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    for w0 in range(0, N_WINDOWS, chunk):
+        pos, ends, steps = scan_plan(digits_np[w0:w0 + chunk])
+        src = _k_gather_points(pool, staging.upload(
+            order_all[w0:w0 + chunk].astype(np.int32), dev), curve)
+        # a step writes only the lanes with pos >= offset // 2: the first
+        # (offset 1) every lane but digit 0's, which nothing reads, so
+        # each later step finds its final lanes in both buffers
+        dst = torch.empty_like(src)
+        pos_d = staging.upload(pos, dev)
+        ends_d = staging.upload(ends, dev)
+        for k in range(steps):
+            CO.jac_scan_step(src, dst, pos_d, 1 << k, curve)
+            src, dst = dst, src
+        out = totals[:, w0:w0 + pos.shape[0]]
+        if side is None:
+            CO.jac_bucket_reduce(src, ends_d, out, curve)
+            continue
+        # the reduction (a block a window) beside the next chunk's scan
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            CO.jac_bucket_reduce(src, ends_d, out, curve)
+        for t in (src, ends_d, totals):
+            t.record_stream(side)
+    if side is not None:
+        torch.cuda.current_stream(dev).wait_stream(side)
+    return totals
 
 
 def _msm(pool: torch.Tensor, digits_np: np.ndarray,
          curve: str) -> torch.Tensor:
     """pool (VC, N) affine words, digits (W, N) -> the (C, 1) Jacobian
     words of the MSM."""
-    dev = pool.device
-    n = digits_np.shape[1]
-    log_n = max(1, math.ceil(math.log2(n))) if n > 1 else 0
-
-    # host-side sort per window
-    order_all = np.argsort(digits_np, axis=1, kind="stable")
-    keys_all = np.take_along_axis(digits_np, order_all, axis=1)
-
-    chunk = _window_chunk(n)
-    totals_parts = []
-    for w0 in range(0, N_WINDOWS, chunk):
-        order = order_all[w0:w0 + chunk]
-        keys = keys_all[w0:w0 + chunk]
-        cw = order.shape[0]
-        starts = np.concatenate(
-            [np.ones((cw, 1), bool), keys[:, 1:] != keys[:, :-1]], axis=1)
-        ends = np.concatenate(
-            [keys[:, 1:] != keys[:, :-1], np.ones((cw, 1), bool)], axis=1)
-        vals = _k_gather_points(pool, torch.from_numpy(order).to(dev), curve)
-        keeps = torch.from_numpy(_scan_keeps(starts, log_n)).to(dev)
-        for k in range(log_n):
-            vals = _k_seg_scan_step(vals, keeps[k], curve, 1 << k)
-        buckets = _k_scatter_buckets(vals, ends, keys)
-        totals_parts.append(_k_bucket_reduce(buckets, curve))
-    totals = torch.cat(totals_parts, dim=1)
-
-    # Horner across windows, high to low (host loop, single-point batch)
-    acc = totals[:, N_WINDOWS - 1:]
-    for wdx in range(N_WINDOWS - 2, -1, -1):
-        acc = _k_double8_add(acc, totals[:, wdx:wdx + 1], curve)
-    return acc
+    return CO.jac_horner(_window_totals(pool, digits_np, curve), curve)
 
 
 # ---------------------------------------------------------------------------
