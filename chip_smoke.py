@@ -111,17 +111,31 @@ Phases (any failure exits non-zero and prints no result):
   7. `production`: Groth16ChunkProver.setup((8, 4, 4), 32) makes the
      production key (1,129,391 variables, 2^21 domain) with the step
      kernel (one launch per chunk and curve), then prove_chunks proves a
-     batch that fills two chunks; both proofs pass verify_chunk and their
-     roots chain. Phase times of keygen, per-chunk prove times and launches,
-     the run-scan and bucket-tail device time, busy time and idle share of
-     one chunk prove under torch.profiler with the torch copy and gather
-     kernels left on its device, the peak device memory, and R, R2 and K2
-     of the chunk's z schedules;
+     batch of five chunks, the last half filled (valid slots 8/4/4 four
+     times, then 4/2/2, as tools/prove_batch.py's batch on the TPU): every
+     proof passes verify_chunk and the state and shielded roots chain
+     across all five. Phase times of keygen, per-chunk prove times and
+     launches, the run-scan and bucket-tail device time, busy time and idle
+     share of one chunk prove (chunk 0, byte-equal to prove_chunks') under
+     torch.profiler with the torch copy and gather kernels left on its
+     device, the peak device memory, and R, R2 and K2 of the chunk's z
+     schedules;
      With `mesh` too: the first chunk proved again through prove_chunks
      over a one-rank NCCL group (a file store, in this process), its proof
      byte-equal to the one-card proof, and merge_pairs (bucket_merge with
      K = 2) on the segment sums that run added up, G1 and G2 at width
      8,192, against bucket_merge_plain;
+  `concurrent` (with `production`, on its key and proofs): (a) prove_chunk
+     of chunks 1 and 2 on two threads at once; (b) two jobs (chunks [0, 1]
+     and [2, 3]) submitted at once to one Dispatcher(prove_chunk), so two
+     prove_chunks run at once; (c) the L2 dummy proof (batch 1) on a third
+     thread while (b) runs. Every proof byte-equal to prove_chunks' (the
+     roots chained within each job) or to
+     zelana_tpu_torch/testdata/l2_dummy_proof.json, the launches equal
+     kernel by kernel to the serial proves' sum; each run's wall time and
+     peak device memory beside the same proves in a row, and (a) under
+     torch.profiler for the idle share. A failure on any thread fails the
+     run;
   `sequencer`: the sequencer served on the card through its HTTP API
      (sequencer/api.py start_api on port 0): the PipelineOrchestrator in
      GROTH16 mode, proving on its own thread with Groth16Prover over
@@ -134,7 +148,8 @@ Phases (any failure exits non-zero and prints no result):
      chunks (10 transfers, 5 withdrawals, 5 shielded commitments), the API's
      Dispatcher sending them over HTTP to the chunk worker
      (runtime/worker.py start_worker) with the production key (the
-     `production` phase's prover, else made here): both verify, their
+     `production` phase's prover, else made here), which proves both at
+     once (asserted): both verify, their
      roots chain, and their bytes equal prove_chunks in-process; and POST
      /v2/ownership/prove equal to testdata/ownership_proof.json. The
      prover kernels' launches on the served paths go to the kernels line
@@ -207,8 +222,8 @@ CHUNK_CONSTRAINTS = 1_128_532  # the 8/4/4 production chunk
 CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
-          "engines", "services", "shielded", "production", "sequencer",
-          "cli", "mesh")
+          "engines", "services", "shielded", "production", "concurrent",
+          "sequencer", "cli", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
@@ -225,6 +240,9 @@ def main() -> int:
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"unknown phase in {phases}")
+    if "concurrent" in phases and "production" not in phases:
+        ap.error("the concurrent phase runs on the production phase's key "
+                 "and proofs: name both")
     import torch
 
     t_start = time.time()
@@ -291,9 +309,11 @@ def main() -> int:
     chunk_prover, served = None, {}
     if "production" in phases:
         # step's launches come from the production keygen
-        keygen, chunk_prover = phase_production(torch, report,
-                                                "mesh" in phases)
+        keygen, chunk_prover, batch = phase_production(torch, report,
+                                                       "mesh" in phases)
         launches["step"] = keygen["step"]
+    if "concurrent" in phases:
+        phase_concurrent(torch, report, chunk_prover, batch)
     if "sequencer" in phases:
         served = phase_sequencer(torch, report, chunk_prover)
     cli = {}
@@ -3068,20 +3088,25 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
             raise AssertionError(f"worker health: {health}")
         torch.cuda.synchronize()
         cuda.reset_launches()
-        t0 = time.time()
-        code, job = http(port, "POST", "/v2/batch/prove", {
-            "batch_id": SERVED_CHUNK_BATCH,
-            "accounts": [{"pk": a, "balance": b} for a, b in accounts],
-            "transfers": transfers, "withdrawals": withdrawals,
-            "shielded_commitments": shielded})
-        if code != 200:
-            raise AssertionError(f"/v2/batch/prove: {code} {job}")
-        status = f"/v2/batch/{job['job_id']}/status"
-        while (st := http(port, "GET", status)[1]["status"]) != "done":
-            if st != "running" or time.time() - t0 > 600:
-                raise AssertionError(f"chunk job: {st}")
-            time.sleep(0.01)
-        rep["chunk_job_ms"] = 1e3 * (time.time() - t0)
+        with most_at_once(chunk_prover, "prove_chunk") as proving:
+            t0 = time.time()
+            code, job = http(port, "POST", "/v2/batch/prove", {
+                "batch_id": SERVED_CHUNK_BATCH,
+                "accounts": [{"pk": a, "balance": b} for a, b in accounts],
+                "transfers": transfers, "withdrawals": withdrawals,
+                "shielded_commitments": shielded})
+            if code != 200:
+                raise AssertionError(f"/v2/batch/prove: {code} {job}")
+            status = f"/v2/batch/{job['job_id']}/status"
+            while (st := http(port, "GET", status)[1]["status"]) != "done":
+                if st != "running" or time.time() - t0 > 600:
+                    raise AssertionError(f"chunk job: {st}")
+                time.sleep(0.01)
+            rep["chunk_job_ms"] = 1e3 * (time.time() - t0)
+        rep["chunks_at_once"] = proving[1]
+        if proving[1] != 2:
+            raise AssertionError(f"the worker proved {proving[1]} of the "
+                                 f"job's two chunks at once, not 2")
         rep["chunk_launches"] = served_launches("sequencer chunk job")
         result = http(port, "GET", f"/v2/batch/{job['job_id']}/proof")[1]
         served = [ChunkProof(
@@ -3097,9 +3122,7 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
             if not chunk_prover.verify_chunk(cp):
                 raise AssertionError(f"served chunk {cp.chunk_index} does "
                                      f"not verify")
-        a, b = served[0].public_inputs, served[1].public_inputs
-        if a[1] != b[0] or a[3] != b[2]:
-            raise AssertionError("served chunk roots do not chain")
+        check_chain(served, "the served chunk job")
         chunks = served_chunks(depth, cap)
         t1 = time.time()
         local = chunk_prover.prove_chunks(chunks, SERVED_CHUNK_BATCH)
@@ -3110,9 +3133,9 @@ def phase_sequencer(torch, report, chunk_prover=None) -> dict:
                 raise AssertionError(f"served chunk {got.chunk_index} "
                                      f"differs from prove_chunks")
         log(f"sequencer: chunk job of 2 production chunks through the "
-            f"worker {rep['chunk_job_ms']:.1f} ms (POST to done), "
-            f"proving_time_ms per chunk {rep['chunk_ms']}; both verify, "
-            f"roots chain, byte-equal to prove_chunks in-process "
+            f"worker, proved at once, {rep['chunk_job_ms']:.1f} ms (POST to "
+            f"done), proving_time_ms per chunk {rep['chunk_ms']}; both "
+            f"verify, roots chain, byte-equal to prove_chunks in-process "
             f"({rep['in_process_ms']:.1f} ms); launches "
             f"{rep['chunk_launches']}")
 
@@ -3478,15 +3501,80 @@ def _cli_dev(rep, card, work, pk_path) -> None:
 # ---------------------------------------------------------------------------
 
 
+PRODUCTION_CHUNKS = 5  # BATCH_BENCH.json's batch: four full, one part
+PRODUCTION_BATCH = 7
+PRODUCTION_OCCUPANCY = [[8, 4, 4]] * 4 + [[4, 2, 2]]
+
+
+def production_batch(builder, cap) -> list:
+    """The five chunks of the production batch, the last half filled (36
+    transfers, 18 withdrawals, 18 shielded slots, the first a
+    full-verification spend), from 15 funded accounts."""
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+    for pk_i in range(1, 16):
+        builder.fund(pk_i, 10_000)
+    note = builder.add_note(spending_key=777, value=50, blinding=42)
+    nt, nw, ns = (c * (PRODUCTION_CHUNKS - 1) + c // 2 for c in cap)
+    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i) for i in range(nt)]
+    withdrawals = [(1 + (i % 15), 0xAA00 + i, 5 + i) for i in range(nw)]
+    shielded = [("full", note, 777, 0xFACE, 50, 4242)] + [
+        1000 + i for i in range(ns - 1)]
+    return Dispatcher.build_chunks_with_witness(
+        builder, transfers, withdrawals, shielded, capacity=cap,
+        pre_shielded_root=builder.shielded_root())
+
+
+def occupancy(chunk) -> list:
+    return [sum(1 for s in slots if s.is_valid) for slots in (
+        chunk.transfers, chunk.withdrawals, chunk.shielded)]
+
+
+def check_chain(cps, what: str) -> None:
+    """Raise unless the state and shielded roots of consecutive chunk
+    proofs chain."""
+    for a, b in zip(cps, cps[1:]):
+        x, y = a.public_inputs, b.public_inputs
+        if x[1] != y[0] or x[3] != y[2]:
+            raise AssertionError(f"{what}: the roots of chunks "
+                                 f"{a.chunk_index} and {b.chunk_index} do "
+                                 f"not chain")
+
+
+@contextlib.contextmanager
+def launches_per_prove():
+    """The launches of each prove_synthesized call while the context is
+    open, one dict of nonzero counts a call, in order (a chunk prove makes
+    all its launches inside that call, on its calling thread: count serial
+    proves only)."""
+    from zelana_tpu_torch.groth16 import prove as P
+    from zelana_tpu_torch.ops import cuda
+
+    real, out = P.prove_synthesized, []
+
+    def counted(*args, **kwargs):
+        before = dict(cuda.LAUNCHES)
+        proof = real(*args, **kwargs)
+        out.append({k: v - before[k] for k, v in cuda.LAUNCHES.items()
+                    if v != before[k]})
+        return proof
+
+    P.prove_synthesized = counted
+    try:
+        yield out
+    finally:
+        P.prove_synthesized = real
+
+
 def phase_production(torch, report, mesh: bool = False) -> tuple:
-    """Returns the kernel launches of the production keygen and the chunk
-    prover. `mesh`: prove the first chunk again over a one-rank NCCL
+    """Returns the kernel launches of the production keygen, the chunk
+    prover and the serial batch ({"chunks", "proofs", "launches": a dict a
+    chunk}). `mesh`: prove the first chunk again over a one-rank NCCL
     group."""
     from zelana_tpu_torch.groth16.keys import prepare_queries
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
     from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
-    from zelana_tpu_torch.runtime.coordinator import Dispatcher
     from zelana_tpu_torch.trace import phase_log_start, phase_log_take
 
     cap, depth = PRODUCTION
@@ -3524,59 +3612,57 @@ def phase_production(torch, report, mesh: bool = False) -> tuple:
     rep["query_upload_s"] = time.time() - t0
     log(f"query pools encoded + uploaded: {rep['query_upload_s']:.2f} s")
 
-    # a batch that fills two chunks: 16 transfers, 8 withdrawals and 8
-    # shielded slots, the first a full-verification spend
+    # the batch of BATCH_BENCH.json: five chunks, the last half filled
     t0 = time.time()
-    builder = ChunkWitnessBuilder(depth)
-    for pk_i in range(1, 16):
-        builder.fund(pk_i, 10_000)
-    note = builder.add_note(spending_key=777, value=50, blinding=42)
-    transfers = [(1 + (i % 8), 1 + ((i + 3) % 8), 10 + i)
-                 for i in range(2 * cap[0])]
-    withdrawals = [(1 + i, 0xAA00 + i, 5 + i) for i in range(2 * cap[1])]
-    shielded = [("full", note, 777, 0xFACE, 50, 4242)] + [
-        1000 + i for i in range(2 * cap[2] - 1)]
-    chunks = Dispatcher.build_chunks_with_witness(
-        builder, transfers, withdrawals, shielded, capacity=cap,
-        pre_shielded_root=builder.shielded_root())
-    if len(chunks) != 2:
-        raise AssertionError(f"the batch made {len(chunks)} chunks, not 2")
-    log(f"batch witnesses (depth-32 SMT paths, 2 chunks): "
-        f"{time.time() - t0:.2f} s")
+    chunks = production_batch(ChunkWitnessBuilder(depth), cap)
+    filled = [occupancy(c) for c in chunks]
+    if filled != PRODUCTION_OCCUPANCY:
+        raise AssertionError(f"the batch's chunks hold {filled} valid "
+                             f"slots, not {PRODUCTION_OCCUPANCY}")
+    log(f"batch witnesses (depth-32 SMT paths, {len(chunks)} chunks, "
+        f"valid slots {filled}): {time.time() - t0:.2f} s")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     cuda.reset_launches()
     t0 = time.time()
-    cps = prover.prove_chunks(chunks, batch_id=7)
-    torch.cuda.synchronize()
+    with launches_per_prove() as per_chunk:
+        cps = prover.prove_chunks(chunks, batch_id=PRODUCTION_BATCH)
+        torch.cuda.synchronize()
     rep["prove_chunks_s"] = time.time() - t0
     rep["prove_launches"] = dict(cuda.LAUNCHES)
+    rep["chunk_launches"] = per_chunk
     rep["prove_peak_bytes"] = torch.cuda.max_memory_allocated()
     rep["prove_peak_over_key_bytes"] = rep["prove_peak_bytes"] - base
     rep["chunk_ms"] = [cp.proving_time_ms for cp in cps]
-    log(f"prove_chunks, 2 chunks: {rep['prove_chunks_s']:.2f} s; per chunk "
-        f"{rep['chunk_ms']} ms (first, pipelined second); launches "
+    log(f"prove_chunks, {len(cps)} chunks: {rep['prove_chunks_s']:.2f} s; "
+        f"per chunk {rep['chunk_ms']} ms (first, then pipelined); launches "
         f"{rep['prove_launches']}; peak device memory "
         f"{rep['prove_peak_bytes'] / 2**30:.2f} GiB "
         f"({rep['prove_peak_over_key_bytes'] / 2**30:.2f} GiB over the "
         f"resident key)")
+    for i, n in enumerate(per_chunk):
+        log(f"  chunk {i}: launches {n}")
+    if len(per_chunk) != len(cps) or sum(
+            sum(n.values()) for n in per_chunk) != sum(
+            rep["prove_launches"].values()):
+        raise AssertionError("the chunks' launches do not add up to the "
+                             "batch's")
     t0 = time.time()
     for cp in cps:
         if not prover.verify_chunk(cp):
             raise AssertionError(f"chunk {cp.chunk_index} does not verify")
-    a, b = cps[0].public_inputs, cps[1].public_inputs
-    if a[1] != b[0] or a[3] != b[2]:
-        raise AssertionError("chunk roots do not chain")
-    log(f"both chunk proofs verify ({time.time() - t0:.2f} s), roots chain")
+    check_chain(cps, "prove_chunks")
+    log(f"all {len(cps)} chunk proofs verify ({time.time() - t0:.2f} s), "
+        f"roots chain")
 
     # one chunk prove under the profiler: device busy time against wall
     cuda.reset_launches()
     with profiled(torch) as prof:
         phase_log_start()
         t0 = time.time()
-        again = prover.prove_chunk(chunks[0], batch_id=7)
+        again = prover.prove_chunk(chunks[0], batch_id=PRODUCTION_BATCH)
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
         phases = _phases(phase_log_take(), t0)
@@ -3617,7 +3703,8 @@ def phase_production(torch, report, mesh: bool = False) -> tuple:
     _z_schedules(prover, chunks[0], rep)
     if mesh:
         _world1_nccl(torch, prover, chunks[0], cps[0], rep)
-    return launches, prover
+    return launches, prover, {"chunks": chunks, "proofs": cps,
+                              "launches": per_chunk}
 
 
 def _world1_nccl(torch, prover, chunk, want, rep) -> None:
@@ -3691,6 +3778,186 @@ def _z_schedules(prover, chunk, rep) -> None:
         f"R2 x lanes2, K2: " + "; ".join(
             f"{v} x ({R} x {l}, {R2} x {l2}, K2 {K2})"
             for (R, l, R2, l2, K2), v in sorted(shapes.items())))
+
+
+# ---------------------------------------------------------------------------
+# `concurrent`: proves at once on one card against the serial proofs
+# ---------------------------------------------------------------------------
+
+CONCURRENT_PAIR = (1, 2)  # run (a): prove_chunk of these chunks at once
+CONCURRENT_JOBS = ((0, 1), (2, 3))  # run (b): two jobs of these chunks
+L2_BATCH = 1  # the batch of testdata/l2_dummy_proof.json
+
+
+def at_once(fns, timeout: float = 900.0) -> list:
+    """Run each of `fns` on its own thread, all released together; their
+    results in order. An exception on any thread is raised here, and so is
+    a thread still running after `timeout` seconds."""
+    import concurrent.futures as cf
+    import threading
+
+    go = threading.Barrier(len(fns))
+
+    def run(fn):
+        go.wait()
+        return fn()
+
+    with cf.ThreadPoolExecutor(len(fns)) as ex:
+        futures = [ex.submit(run, fn) for fn in fns]
+        return [f.result(timeout=timeout) for f in futures]
+
+
+@contextlib.contextmanager
+def most_at_once(obj, name: str):
+    """While open, obj's method `name` counts its calls that run at once;
+    yields [running, most]."""
+    import threading
+
+    real, lock, count = getattr(obj, name), threading.Lock(), [0, 0]
+
+    def counted(*args, **kwargs):
+        with lock:
+            count[0] += 1
+            count[1] = max(count)
+        try:
+            return real(*args, **kwargs)
+        finally:
+            with lock:
+                count[0] -= 1
+
+    setattr(obj, name, counted)
+    try:
+        yield count
+    finally:
+        delattr(obj, name)
+
+
+def launch_sum(counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_concurrent(torch, report, prover, batch) -> None:
+    """Proves at once on the card, each held to the serial proofs of the
+    `production` phase (`batch`), any difference raising: (a) prove_chunk
+    of chunks 1 and 2 on two threads; (b) two jobs, chunks [0, 1] and
+    [2, 3], submitted at once to one Dispatcher(prover.prove_chunk), so
+    that two prove_chunks run at once, their roots chained within each
+    job; (c) an L2 prove of L2BlockCircuit.dummy() as batch 1 on a third
+    thread while (b) runs, byte-equal to testdata/l2_dummy_proof.json.
+    Each run's launches equal, kernel by kernel, the sum of the same
+    proves' serial launches ((b) and (c) together: they overlap). Each
+    run is also made in a row, on one thread, for its wall time and peak
+    device memory beside the run's; (a) runs once more under the profiler
+    for the device's busy time and idle share."""
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.groth16.prove import prove
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+    rep = report["concurrent"] = {}
+    chunks, want = batch["chunks"], batch["proofs"]
+
+    def run(what, fns, expect, together: bool) -> list:
+        """fns at once (together) or in a row; their results, after the
+        launch check, with the wall time and peak memory in rep."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        t0 = time.time()
+        out = at_once(fns) if together else [fn() for fn in fns]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if got != expect:
+            raise AssertionError(f"{what}: launches {got}, the serial "
+                                 f"proves' sum {expect}")
+        rep[what] = {"wall_s": wall, "launches": got,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        return out
+
+    def same(cps, idx, what: str) -> None:
+        for cp, i in zip(cps, idx, strict=True):
+            w = want[i]
+            if (cp.chunk_index, cp.proof_bytes, cp.public_witness) != (
+                    w.chunk_index, w.proof_bytes, w.public_witness):
+                raise AssertionError(f"{what}: chunk {i} differs from "
+                                     f"prove_chunks' proof")
+
+    def logged(what: str, row: str, run_: str, extra: str = "") -> None:
+        a, b = rep[run_], rep[row]
+        log(f"concurrent {what}: {a['wall_s'] * 1e3:.1f} ms at once "
+            f"against {b['wall_s'] * 1e3:.1f} ms in a row; peak device "
+            f"memory {a['peak_bytes'] / 2**30:.2f} GiB "
+            f"({b['peak_bytes'] / 2**30:.2f} in a row); launches "
+            f"{a['launches']}, the serial sum{extra}")
+
+    # (a) two chunk proves at once
+    fns = [functools.partial(prover.prove_chunk, chunks[i], PRODUCTION_BATCH)
+           for i in CONCURRENT_PAIR]
+    expect = launch_sum(batch["launches"][i] for i in CONCURRENT_PAIR)
+    same(run("a_in_a_row", fns, expect, False), CONCURRENT_PAIR,
+         "prove_chunk in a row")
+    same(run("a", fns, expect, True), CONCURRENT_PAIR, "(a)")
+    logged("(a), prove_chunk of chunks 1 and 2 on two threads",
+           "a_in_a_row", "a", "; both byte-equal to prove_chunks")
+    with profiled(torch) as prof:
+        same(run("a_profiled", fns, expect, True), CONCURRENT_PAIR,
+             "(a) profiled")
+    busy = _device_busy_ms(prof, "two chunk proves at once")
+    wall = rep["a_profiled"]["wall_s"] * 1e3
+    rep["a_profiled"].update(device_busy_ms=busy, idle_share=1 - busy / wall)
+    log(f"concurrent (a) under the profiler: {wall:.1f} ms wall, device "
+        f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; byte-equal")
+
+    # (b) two jobs at once through one Dispatcher, (c) an L2 prove beside
+    dispatcher = Dispatcher(prover.prove_chunk)
+    if dispatcher.batch_prover is None:
+        raise AssertionError("the Dispatcher did not wire prove_chunks")
+
+    def job(idx) -> list:
+        jid = dispatcher.submit_job([chunks[i] for i in idx],
+                                    PRODUCTION_BATCH)
+        deadline = time.time() + 600
+        while (st := dispatcher.status(jid)) in ("queued", "running"):
+            if time.time() > deadline:
+                raise AssertionError(f"the job of chunks {idx} is {st}")
+            time.sleep(0.01)
+        if st != "done":
+            raise AssertionError(f"the job of chunks {idx} is {st}: "
+                                 f"{dispatcher.jobs[jid].error}")
+        cps = dispatcher.proofs(jid)
+        same(cps, idx, f"the job of chunks {idx}")
+        check_chain(cps, f"the job of chunks {idx}")
+        return cps
+
+    with open("zelana_tpu_torch/testdata/l2_dummy_proof.json") as f:
+        l2_want = json.load(f)["proof"]
+    l2_pk = ProvingKey.load_npz("artifacts/l2_dummy_pk.npz")
+    circuit = l2_circuit()
+
+    def l2():
+        proof = prove(l2_pk, circuit, batch_id=L2_BATCH)
+        if proof.serialize_compressed().hex() != l2_want:
+            raise AssertionError("the L2 proof differs from the recorded "
+                                 "JAX vector")
+        return proof
+
+    cuda.reset_launches()
+    l2()  # its pools on the card and its launches
+    l2_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    fns = [functools.partial(job, idx) for idx in CONCURRENT_JOBS] + [l2]
+    expect = launch_sum([batch["launches"][i] for idx in CONCURRENT_JOBS
+                         for i in idx] + [l2_launches])
+    run("bc_in_a_row", fns, expect, False)
+    run("bc", fns, expect, True)
+    logged("(b) + (c), two jobs of two chunks through one Dispatcher and "
+           "an L2 prove on a third thread", "bc_in_a_row", "bc",
+           "; every chunk byte-equal to prove_chunks, the roots chained in "
+           "each job, the L2 proof equal to the JAX vector")
 
 
 # ---------------------------------------------------------------------------
@@ -3996,7 +4263,7 @@ def _device_busy_ms(prof, what: str) -> float:
 
 def _phases(entries, t0) -> list:
     """Log and return the (seconds since t0, label) of trace entries."""
-    out = [(round(at - t0, 3), label) for at, _, label in entries]
+    out = [(round(at - t0, 3), label) for at, _, label, _thread in entries]
     for at, label in out:
         log(f"  [+{at:8.3f} s] {label}")
     return out

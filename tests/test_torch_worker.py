@@ -4,8 +4,9 @@ Dispatcher) against the JAX package's, on the CPU, with a stub chunk prover
 in each package as tests/test_chunk_prover.py's
 test_http_worker_plane_round_trip has: the wire layer is what is under
 test. The request JSON, the proofs the dispatcher collects over HTTP and the
-API's job result are byte-equal to the JAX package's. Two chunks reach the
-port's worker at once, and it proves them one at a time.
+API's job result are byte-equal to the JAX package's. Two chunks reach one
+worker at once, and it proves them at once, in the port as in the JAX
+package.
 
 chip_smoke.py's `sequencer` phase serves two production chunks through the
 worker with the real prover on the card."""
@@ -52,8 +53,8 @@ def chunks(cw, coord):
 
 def stub_prover(cp, cw, coord, worker, hold=None):
     """The package's Groth16ChunkProver with test_chunk_prover.py's stub
-    prove_chunk. `hold`: the first prove waits until the worker has taken
-    in a second request, and counts the proves running at once."""
+    prove_chunk, which counts the proves running at once. `hold`: an
+    event set when two proves run at once; each prove waits for it."""
 
     class Stub(cp.Groth16ChunkProver):
         def __init__(self):
@@ -66,8 +67,10 @@ def stub_prover(cp, cw, coord, worker, hold=None):
             with self.count:
                 self.running += 1
                 self.most = max(self.most, self.running)
-            if hold is not None and chunk.index == 0:
-                assert hold.wait(10), "the second request never arrived"
+                if hold is not None and self.running == 2:
+                    hold.set()
+            if hold is not None:
+                assert hold.wait(10), "the two proves never ran at once"
             wd_root, batch_hash = cw.chunk_accumulators(
                 batch_id, chunk.transfers, chunk.withdrawals, chunk.shielded)
             values = [chunk.pre_state_root, chunk.post_state_root,
@@ -134,35 +137,32 @@ def test_worker_plane_matches_jax():
     assert got[0].public_inputs[1] == got[1].public_inputs[0]
 
 
-def test_worker_proves_one_chunk_at_a_time(monkeypatch):
-    """Both chunks of a job reach one port worker at once (the Dispatcher's
-    pool sends them together); the worker's lock runs their proves one
-    after the other, and the answers are the JAX worker's."""
-    arrived = []
-    both = threading.Event()
-    parse = TW.chunk_from_request
-
-    def counted(req):
-        arrived.append(req.chunk_index)
-        if len(arrived) == 2:
-            both.set()
-        return parse(req)
-
-    monkeypatch.setattr(TW, "chunk_from_request", counted)
-    stub = stub_prover(TCP, TCW, TC, TW, hold=both)
-    server, port = TW.start_worker(stub)
+def served_at_once(cp, cw, coord, worker):
+    """Both chunks of a two-chunk job sent to one worker of a package (the
+    Dispatcher's pool sends them together); the job's proofs and the
+    worker's stub."""
+    stub = stub_prover(cp, cw, coord, worker, hold=threading.Event())
+    server, port = worker.start_worker(stub)
     try:
-        dispatcher = TC.Dispatcher(chunk_prover=TW.http_chunk_prover(
+        dispatcher = coord.Dispatcher(chunk_prover=worker.http_chunk_prover(
             [f"http://127.0.0.1:{port}"]))
-        two = chunks(TCW, TC)[:2]
-        got = wait_job(dispatcher, dispatcher.submit_job(two, BATCH_ID))
+        proofs = wait_job(dispatcher, dispatcher.submit_job(
+            chunks(cw, coord)[:2], BATCH_ID))
     finally:
         server.shutdown()
         server.server_close()
-    assert sorted(arrived) == [0, 1] and stub.most == 1
-    jstub = stub_prover(JCP, JCW, JC, JW)
-    want = [jstub.prove_chunk(c, BATCH_ID) for c in chunks(JCW, JC)[:2]]
+    return proofs, stub
+
+
+def test_worker_proves_chunks_at_once():
+    """One worker proves both chunks of a job at once, the port's as the
+    JAX package's (no lock around prove_chunk), and the answers are the
+    JAX worker's."""
+    want, jstub = served_at_once(JCP, JCW, JC, JW)
+    got, stub = served_at_once(TCP, TCW, TC, TW)
+    assert jstub.most == 2 and stub.most == 2
     assert [vars(p) for p in got] == [vars(p) for p in want]
+    assert [p.chunk_index for p in got] == [0, 1]
 
 
 def api_job(pkg, cp, cw, coord, worker) -> dict:

@@ -1,7 +1,7 @@
 """Record the prover services' test vectors with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/record_service_vectors.py [l2] [ownership]
-        [cubic] [pipeline] [cli] [shielded] [jac_msm]
+        [cubic] [cubic_many] [pipeline] [cli] [shielded] [jac_msm]
 
 - ``zelana_tpu_torch/testdata/l2_batch_proof.json``: the JAX
   ``sequencer.prover_service.Groth16Prover`` with
@@ -18,6 +18,10 @@
   ``groth16.prove.prove`` of the cubic circuit (x^3 + x + 5 == 35, x = 3)
   as batch 7 with its seed-0 key (``groth16.setup.keygen``), and the
   SHA-256 of that key's compressed serialization.
+- ``zelana_tpu_torch/testdata/cubic_many_proofs.json``: with the same
+  key, the JAX ``prove`` of the cubic circuit at x = 3 as batches 7, 8 and
+  9, and its ``prove_many`` of x = 5 as batches 11 and 12; compressed
+  proofs.
 - ``zelana_tpu_torch/testdata/pipeline_l2_proof.json``: the served L2
   batch. The JAX ``sequencer.pipeline.PipelineOrchestrator`` in GROTH16
   mode, dev mode, proving with ``Groth16Prover`` over
@@ -61,7 +65,8 @@
 
 The port is held against these files by tests/test_torch_prover_service.py,
 tests/test_torch_sharded.py, tests/test_torch_sequencer.py,
-tests/test_torch_cli.py and tests/test_torch_shielded.py (on the CPU) and
+tests/test_torch_cli.py, tests/test_torch_shielded.py and
+tests/test_torch_concurrent.py (on the CPU) and
 by chip_smoke.py's ``services``, ``sequencer``, ``cli`` and ``shielded``
 phases (on the card); the Jacobian MSM's words by
 tests/test_torch_curve_ops.py.
@@ -180,6 +185,35 @@ def record_cubic() -> None:
                          "with zelana_tpu.groth16.setup.keygen(seed=0))",
     }
     _write("cubic_proof.json", out)
+
+
+CUBIC_MANY = {"prove": (3, (7, 8, 9)), "prove_many": (5, (11, 12))}
+
+
+def record_cubic_many() -> None:
+    from zelana_tpu.groth16.prove import prove, prove_many
+    from zelana_tpu.groth16.setup import keygen
+    from zelana_tpu.groth16.verify import verify
+
+    pk = keygen(Cubic(CUBIC_X), seed=0)
+    x, ids = CUBIC_MANY["prove"]
+    single = [prove(pk, Cubic(x), batch_id=b) for b in ids]
+    mx, mids = CUBIC_MANY["prove_many"]
+    many = prove_many(pk, [(Cubic(mx), b) for b in mids])
+    for p, v in [(p, x) for p in single] + [(p, mx) for p in many]:
+        assert verify(pk.vk, p, [v ** 3 + v + 5])
+    out = {
+        "circuit": "x^3 + x + 5 == out",
+        "prove": {"x": x, "batch_ids": list(ids),
+                  "proofs": [p.serialize_compressed().hex() for p in single]},
+        "prove_many": {"x": mx, "batch_ids": list(mids),
+                       "proofs": [p.serialize_compressed().hex()
+                                  for p in many]},
+        "recorded_with": f"{CMD} cubic_many (zelana_tpu.groth16.prove.prove "
+                         "and prove_many with zelana_tpu.groth16.setup."
+                         "keygen(seed=0))",
+    }
+    _write("cubic_many_proofs.json", out)
 
 
 PIPELINE_FUNDED = (b"\x01" * 32, 1000)
@@ -540,14 +574,16 @@ def _write(name: str, obj: dict) -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["l2", "ownership", "cubic", "pipeline", "cli",
-                             "shielded", "jac_msm"]
+    which = sys.argv[1:] or ["l2", "ownership", "cubic", "cubic_many",
+                             "pipeline", "cli", "shielded", "jac_msm"]
     if "l2" in which:
         record_l2()
     if "ownership" in which:
         record_ownership()
     if "cubic" in which:
         record_cubic()
+    if "cubic_many" in which:
+        record_cubic_many()
     if "pipeline" in which:
         record_pipeline()
     if "cli" in which:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 import struct
+import threading
 from dataclasses import dataclass, field
 from typing import List, Sequence
 
@@ -219,6 +220,9 @@ def proving_key_from_arrays(arrays) -> ProvingKey:
                       l_query=vecs["l"])
 
 
+_PREPARE_LOCK = threading.Lock()  # held while a key's pools are built
+
+
 def prepare_queries(pk: ProvingKey, device="cuda", mesh=None) -> dict:
     """Device-resident query pools of `pk`, built once per device (or, with
     a parallel.distributed.Mesh, once per mesh: this rank's shards) and
@@ -226,14 +230,19 @@ def prepare_queries(pk: ProvingKey, device="cuda", mesh=None) -> dict:
     (corrected at msm_end). The l pool is prefix-padded with one identity
     slot per instance variable (len(gamma_abc_g1) of them), so it is
     indexed by the full assignment z and the a, b1 and l MSMs share one
-    schedule set."""
+    schedule set. Proves on several threads that reach a key's device
+    first wait for one build of its pools."""
     from ..device import resolve
     from ..ops import msm_scan as MSM
 
     dev = resolve(device)
     cache = pk.__dict__.setdefault("_prepared", {})
     key = str(dev) if mesh is None else mesh.key
-    if key not in cache:
+    if key in cache:
+        return cache[key]
+    with _PREPARE_LOCK:
+        if key in cache:
+            return cache[key]
         ni = len(pk.vk.gamma_abc_g1)
         l_pts = PointArray.from_points(pk.l_query, 2).with_identity_prefix(ni)
         if mesh is None:
@@ -247,4 +256,4 @@ def prepare_queries(pk: ProvingKey, device="cuda", mesh=None) -> dict:
         cache[key] = {"a": on_g1(pk.a_query), "b1": on_g1(pk.b_g1_query),
                       "b2": on_g2(pk.b_g2_query), "l": on_g1(l_pts),
                       "h": on_g1(pk.h_query)}
-    return cache[key]
+        return cache[key]

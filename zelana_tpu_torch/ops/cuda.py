@@ -8,7 +8,8 @@ than every source is reused. Nothing here runs when a module is imported:
 the CPU tests import every module on machines with no nvcc.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a wrapper
-adds one where it launches its kernel and nowhere else.
+calls ``count`` where it launches its kernel and nowhere else. Proves on
+several threads launch at once, so ``count`` adds under a lock.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ BUILD_LOG: dict = {}  # source -> {"seconds": s, "ptxas": text}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name` to LAUNCHES."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

@@ -383,7 +383,7 @@ def runscan(pool: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
                 int(proj_in), pool.data_ptr(), ids.data_ptr(),
                 flags.data_ptr(), emit.data_ptr(), nrows, lanes,
                 pool.stride(0), device=dev)
-    cuda.LAUNCHES["runscan"] += 1
+    cuda.count("runscan")
     return emit
 
 
@@ -404,7 +404,7 @@ def bucket_merge(emit: torch.Tensor, dense: torch.Tensor, K: int,
     cuda.launch("curve_kernels", "zt_bucket_merge", 0 if curve == "g1" else 1,
                 emit.data_ptr(), emit.shape[1], dense.data_ptr(), K, nb,
                 merged.data_ptr(), device=dev)
-    cuda.LAUNCHES["bucket_tail"] += 1
+    cuda.count("bucket_tail")
     return merged
 
 
@@ -419,7 +419,7 @@ def bucket_tree(merged: torch.Tensor, curve: str) -> torch.Tensor:
                       device=dev)
     cuda.launch("curve_kernels", "zt_bucket_tree", 0 if curve == "g1" else 1,
                 merged.data_ptr(), NB, out.data_ptr(), device=dev)
-    cuda.LAUNCHES["bucket_tail"] += 1
+    cuda.count("bucket_tail")
     return out
 
 
@@ -496,5 +496,5 @@ def step(pool: torch.Tensor, off: int, S: int, curve: str, ia=None, ib=None,
                 None if ia is None else ia.data_ptr(),
                 None if ib is None else ib.data_ptr(), base, off, S, total,
                 rounds, device=dev)
-    cuda.LAUNCHES["step"] += 1
+    cuda.count("step")
     return pool

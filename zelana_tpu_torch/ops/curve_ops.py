@@ -421,7 +421,7 @@ def jac_add(p: torch.Tensor, q: torch.Tensor, curve: str) -> torch.Tensor:
         cuda.launch("jac_kernels", "zt_jac_add", 0 if curve == "g1" else 1,
                     p.data_ptr(), p.stride(0), q.data_ptr(), q.stride(0),
                     out.data_ptr(), n, device=dev)
-        cuda.LAUNCHES["jac_add"] += 1
+        cuda.count("jac_add")
     return out
 
 
@@ -448,7 +448,7 @@ def jac_scan_step(src: torch.Tensor, dst: torch.Tensor, pos: torch.Tensor,
         cuda.launch("jac_kernels", "zt_jac_scan", 0 if curve == "g1" else 1,
                     src.data_ptr(), dst.data_ptr(), pos.data_ptr(), W * N,
                     offset, device=dev)
-        cuda.LAUNCHES["jac_scan"] += 1
+        cuda.count("jac_scan")
     return dst
 
 
@@ -471,7 +471,7 @@ def jac_bucket_reduce(vals: torch.Tensor, ends: torch.Tensor,
         cuda.launch("jac_kernels", "zt_jac_reduce", 0 if curve == "g1" else 1,
                     vals.data_ptr(), W * N, ends.data_ptr(), W,
                     out.data_ptr(), out.stride(0), device=dev)
-        cuda.LAUNCHES["jac_reduce"] += 1
+        cuda.count("jac_reduce")
     return out
 
 
@@ -489,5 +489,5 @@ def jac_horner(totals: torch.Tensor, curve: str) -> torch.Tensor:
     cuda.launch("jac_kernels", "zt_jac_horner", 0 if curve == "g1" else 1,
                 totals.data_ptr(), totals.stride(0), W, out.data_ptr(),
                 device=dev)
-    cuda.LAUNCHES["jac_horner"] += 1
+    cuda.count("jac_horner")
     return out

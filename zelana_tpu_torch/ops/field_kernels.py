@@ -81,7 +81,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     cuda.launch("field_kernels", "zt_mont_mul", _field_id(spec), a.data_ptr(),
                 b.data_ptr(), out.data_ptr(), n, device=dev)
-    cuda.LAUNCHES["mont_mul"] += 1
+    cuda.count("mont_mul")
     return out
 
 
@@ -120,7 +120,7 @@ def mimc_permute(x: torch.Tensor, rc: torch.Tensor,
     out = torch.empty_like(x)
     cuda.launch("field_kernels", "zt_mimc_permute", x.data_ptr(),
                 rc.data_ptr(), out.data_ptr(), n, rounds, device=dev)
-    cuda.LAUNCHES["mimc_permute"] += 1
+    cuda.count("mimc_permute")
     return out
 
 
@@ -199,7 +199,7 @@ def _poseidon_launch(cols, state, out, n, consts, full, partial, spec,
     cuda.launch("field_kernels", "zt_poseidon", _field_id(spec), ptrs,
                 len(cols), state, out.data_ptr(), n, consts.data_ptr(),
                 full // 2, partial, device=dev)
-    cuda.LAUNCHES["poseidon"] += 1
+    cuda.count("poseidon")
 
 
 def poseidon_permute(state: torch.Tensor, consts: torch.Tensor, full: int,
@@ -367,7 +367,7 @@ def _inv_fwd(a, spec, mapping: int):
     totals = torch.empty((L.NWORDS, chains), dtype=torch.int32, device=dev)
     cuda.launch("field_kernels", "zt_inv_fwd", _field_id(spec), a.data_ptr(),
                 prefix.data_ptr(), totals.data_ptr(), n, mapping, device=dev)
-    cuda.LAUNCHES["inv_fwd"] += 1
+    cuda.count("inv_fwd")
     return prefix, totals
 
 
@@ -410,7 +410,7 @@ def _inv_bwd(a, prefix, tinv, spec, mapping: int) -> torch.Tensor:
     cuda.launch("field_kernels", "zt_inv_bwd", _field_id(spec), a.data_ptr(),
                 prefix.data_ptr(), tinv.data_ptr(), out.data_ptr(), n,
                 mapping, device=dev)
-    cuda.LAUNCHES["inv_bwd"] += 1
+    cuda.count("inv_bwd")
     return out
 
 
@@ -431,7 +431,7 @@ def inv_base(a: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
     out = torch.empty_like(a)
     cuda.launch("field_kernels", "zt_inv_base", _field_id(spec),
                 a.data_ptr(), out.data_ptr(), n, device=dev)
-    cuda.LAUNCHES["inv_base"] += 1
+    cuda.count("inv_base")
     return out
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -80,6 +81,8 @@ class NttPlan:
     coset_inv_n: np.ndarray  # (8, n) words of 1/n g^-j
     z_inv: np.ndarray  # (8,) words of 1/Z on the coset, Z = g^n - 1
     _dev: dict = field(default_factory=dict, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
     @property
     def n(self):
@@ -89,9 +92,12 @@ class NttPlan:
         """The tables the passes read, as tensors on `device`, made once:
         the stage-major twiddles ("tw_st", "twi_st", gathered from the
         twiddle tables on the device), g^j ("coset") and 1/n g^-j
-        ("coset_inv_n")."""
+        ("coset_inv_n"). Threads that ask for a device first wait for one
+        upload."""
         key = str(device)
-        if key not in self._dev:
+        with self._lock:
+            if key in self._dev:
+                return self._dev[key]
             cols = torch.from_numpy(_stage_columns(self.n)).to(device)
             self._dev[key] = {
                 "tw_st": L.to_tensor(self.twiddles, device).index_select(
@@ -101,11 +107,26 @@ class NttPlan:
                 "coset": L.to_tensor(self.coset, device),
                 "coset_inv_n": L.to_tensor(self.coset_inv_n, device),
             }
-        return self._dev[key]
+            return self._dev[key]
+
+
+_PLAN_LOCKS: dict = {}  # min_size -> the lock its first build holds
+_PLAN_LOCKS_LOCK = threading.Lock()
+
+
+def make_plan(min_size: int) -> NttPlan:
+    """The plan of the domain of at least `min_size` points, built once:
+    threads that ask for a size while its host tables are being built (a
+    few seconds at 2^21) wait for that build instead of making their
+    own."""
+    with _PLAN_LOCKS_LOCK:
+        lock = _PLAN_LOCKS.setdefault(min_size, threading.Lock())
+    with lock:
+        return _build_plan(min_size)
 
 
 @functools.lru_cache(maxsize=None)
-def make_plan(min_size: int) -> NttPlan:
+def _build_plan(min_size: int) -> NttPlan:
     dom = Domain.new(min_size)
     n = dom.size
     g = FR_GENERATOR
@@ -225,7 +246,7 @@ def ntt_pass(xs, twst, s0: int, s1: int, pro: int = PRO_NONE, ptab=None,
                 etab.data_ptr() if etab is not None else None,
                 _host_words(pk), _host_words(ek), n, s0, s1, pro, epi,
                 device=dev)
-    cuda.LAUNCHES["ntt_pass"] += 1
+    cuda.count("ntt_pass")
     return out
 
 
@@ -392,5 +413,5 @@ def ntt_cross(own: torch.Tensor, recv: torch.Tensor, twst: torch.Tensor,
     cuda.launch("ntt_kernels", "zt_ntt_cross", own.data_ptr(),
                 recv.data_ptr(), twst.data_ptr(), n, col0, out.data_ptr(), m,
                 int(bit), _host_words(ek), device=dev)
-    cuda.LAUNCHES["ntt_cross"] += 1
+    cuda.count("ntt_cross")
     return out

@@ -18,11 +18,11 @@ chunk_prover callable that round-robins chunks across workers over HTTP --
 the coordinator's WORKERS-env fan-out (prover-coordinator/main.rs:86-99)
 with the same in-process Dispatcher driving it.
 
-The server answers requests on several threads, but one worker proves one
-chunk at a time: its proves share one card and the port's process-wide
-state (NTT plans, the upload stream, the native libraries), so
-``start_worker`` serializes them with a lock. The JAX package's worker has
-no lock; the proofs are the same either way."""
+The server answers requests on several threads and proves the chunks
+they carry at once, as the JAX package's worker does: the proves share one
+card and the port's process-wide state (NTT plans, query pools, launch
+counts, the native libraries), each built or counted under its own lock,
+and their kernels queue on the card's default stream."""
 
 from __future__ import annotations
 
@@ -77,7 +77,6 @@ def chunk_from_request(req: ChunkProveRequest) -> Chunk:
 
 def start_worker(prover: Groth16ChunkProver, port: int = 0):
     """Boot a chunk-proving worker; returns (server, port)."""
-    prove_lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):
@@ -108,8 +107,7 @@ def start_worker(prover: Groth16ChunkProver, port: int = 0):
             try:
                 req = ChunkProveRequest.from_json(body)
                 chunk = chunk_from_request(req)
-                with prove_lock:
-                    cp = prover.prove_chunk(chunk, req.batch_id)
+                cp = prover.prove_chunk(chunk, req.batch_id)
                 result = ProofResult(
                     chunk_index=cp.chunk_index,
                     proof=cp.proof_bytes.hex(),
