@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --phases kernels,keygen   # a subset, no result
     python3 chip_smoke.py --phases mesh   # the multi-card path alone
+    python3 chip_smoke.py --phases production,msm24,mesh   # BASELINE config 5
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: card name and power limit, CUDA and nvcc versions, and the
@@ -69,8 +70,8 @@ Phases (any failure exits non-zero and prints no result):
      lane sweep (the whole segment's device time per level-1 lane count and
      level-2 cap), the kernel times at the earlier shapes (8,192 / 2,048
      lanes, 1,024 level-2 lanes) and at the chosen ones beside their bound,
-     and the chosen level-1 pass and bucket tail against their plain
-     versions on the card;
+     and the chosen shape's two run-scans and bucket tail against their
+     plain versions on the card;
   6. `engines`: the batch add jac_add (ops/curve_ops.py) against its
      plain version on the card at sharded_msm's (C, 1) once for each mask
      case of point_add, at 5 lanes and over 2^16 random points with the
@@ -172,6 +173,14 @@ Phases (any failure exits non-zero and prints no result):
      on the host, not a kernel fault. Each command's seconds, the worker's
      start-up and the chunk job's proving_time_ms are logged beside the
      card;
+  `msm24`: BASELINE config 5 on one card: the 2^24-point G1 MSM through
+     msm_scan.msm_begin / msm_end (256 segments of 2^16) over the 4,096-point
+     tile of P_j = (j + 1) G gathered on the card, uniform 253-bit scalars
+     from a seed, equal to its closed form; its launches (two run-scans and
+     a two-launch tail a segment, asserted), the host stages' seconds
+     (digits, schedules, uploads, dispatch, the host's finish), device busy
+     time under torch.profiler, peak device memory and peak RSS; the last
+     segment's two run-scans and bucket tail against their plain versions;
   8. `mesh`: ntt_cross (the sharded NTT's cross-rank stage) against its
      plain version at 2^19 elements, both halves of the butterfly, with
      and without the final 1/n, timed beside its bound; then four ranks
@@ -188,15 +197,30 @@ Phases (any failure exits non-zero and prints no result):
      are logged; the ranks' ntt_cross launches go to the kernels line.
      After the path, merge_pairs against bucket_merge_plain on the arrays
      the ranks exchanged in the reduction (widths 4,096 and 2,048, G1 and
-     G2) and on the two 8,192-wide orders of each first pair;
+     G2) and on the two 8,192-wide orders of each first pair. Then, each
+     in its own run_local call over the same backend: the 2^24-point G1 MSM
+     over the four ranks through msm_begin_sharded (2^22 points and 64
+     segments a rank, added up on the card, then two exchanges), every
+     rank equal to the closed form, merge_pairs held at 8,192, 4,096 and
+     2,048, rank 0's last segment held as in `msm24`; and, with
+     `production`, its first chunk proved over the four ranks through
+     prove_chunks (the key handed over by ProvingKey.save_npz in a
+     temporary directory), every rank's proof byte-equal to the one-card
+     proof and verified, merge_pairs held in G1 and G2. Launches asserted
+     per rank, times, device busy time, peak device memory and peak RSS a
+     rank;
   9. one JSON line of per-kernel numbers (launches: the prover's kernels
      on the L2 slice, step on the production keygen and, apart, on the
      tape MSMs, jac_scan / jac_reduce / jac_horner on the Jacobian MSMs,
      jac_add on the mesh path's sharded_msm, mimc_permute
      and poseidon on the hashes, inv_fwd / inv_bwd /
      inv_base on the inversions, ntt_cross on the mesh path; beside them
-     the served, command-line and shielded paths' launches), the card,
-     the result line.
+     the served, command-line and shielded paths' launches and those of
+     BASELINE config 5: `msm_2_24_launches` on one card,
+     `mesh_msm_2_24_launches` and `mesh_chunk_launches` summed over the
+     ranks), the card, the result line.
+
+Each phase's wall seconds are logged as it ends.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -209,6 +233,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
@@ -223,12 +248,27 @@ CHUNK_DOMAIN = 1 << 21
 PRODUCTION = ((8, 4, 4), 32)  # capacity and tree depth of the chunk
 PHASES = ("kernels", "hashes", "inversion", "slice", "keygen", "chunk",
           "engines", "services", "shielded", "production", "concurrent",
-          "sequencer", "cli", "mesh")
+          "sequencer", "cli", "msm24", "mesh")
 SLICE_KERNELS = ("ntt_pass", "runscan", "bucket_tail", "mont_mul")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase_clock(report):
+    """A context manager a phase: `with clock(name):` logs the phase's
+    wall seconds and keeps them in report["phase_s"]."""
+    spent = report.setdefault("phase_s", {})
+
+    @contextlib.contextmanager
+    def clock(name: str):
+        t0 = time.time()
+        yield
+        spent[name] = time.time() - t0
+        log(f"phase {name}: {spent[name]:.1f} s wall")
+
+    return clock
 
 
 def main() -> int:
@@ -281,48 +321,72 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     report = {}
-    kernels, launches = [], {}
+    kernels, launches, paths = [], {}, {}
+    clock = phase_clock(report)
     if "kernels" in phases:
-        kernels = phase_kernels(torch, dev, report)
+        with clock("kernels"):
+            kernels = phase_kernels(torch, dev, report)
     if "hashes" in phases:
-        launches.update(phase_hashes(torch, dev, report))
+        with clock("hashes"):
+            launches.update(phase_hashes(torch, dev, report))
     if "inversion" in phases:
-        launches.update(phase_inversion(torch, dev, report))
+        with clock("inversion"):
+            launches.update(phase_inversion(torch, dev, report))
     if "slice" in phases:
-        launches.update(phase_slice(torch, dev, report))
+        with clock("slice"):
+            launches.update(phase_slice(torch, dev, report))
     if "keygen" in phases:
-        phase_keygen(report)
+        with clock("keygen"):
+            phase_keygen(report)
     if "chunk" in phases:
-        phase_chunk(torch, dev, report)
+        with clock("chunk"):
+            phase_chunk(torch, dev, report)
     tape = {}
     if "engines" in phases:
-        entries, eng_launches, tape_runs, step_times = phase_engines(
-            torch, dev, report)
+        with clock("engines"):
+            entries, eng_launches, tape_runs, step_times = phase_engines(
+                torch, dev, report)
         kernels += entries
         launches.update(eng_launches)
         tape = {"tape_launches": tape_runs, "tape_steps": step_times}
     if "services" in phases:
-        phase_services(torch, dev, report)
-    shielded = {}
+        with clock("services"):
+            phase_services(torch, dev, report)
     if "shielded" in phases:
-        shielded = phase_shielded(torch, dev, report)
-    chunk_prover, served = None, {}
+        with clock("shielded"):
+            # a shielded proof's, step the keygen's
+            paths["shielded_launches"] = phase_shielded(torch, dev, report)
+    chunk_prover, production = None, None
     if "production" in phases:
-        # step's launches come from the production keygen
-        keygen, chunk_prover, batch = phase_production(torch, report,
-                                                       "mesh" in phases)
+        with clock("production"):
+            # step's launches come from the production keygen
+            keygen, chunk_prover, batch = phase_production(
+                torch, report, "mesh" in phases)
         launches["step"] = keygen["step"]
+        production = (chunk_prover, batch)
     if "concurrent" in phases:
-        phase_concurrent(torch, report, chunk_prover, batch)
+        with clock("concurrent"):
+            phase_concurrent(torch, report, chunk_prover, batch)
     if "sequencer" in phases:
-        served = phase_sequencer(torch, report, chunk_prover)
-    cli = {}
+        with clock("sequencer"):
+            # and on the sequencer's served paths
+            paths["sequencer_launches"] = phase_sequencer(torch, report,
+                                                          chunk_prover)
     if "cli" in phases:
-        cli = phase_cli(torch, report, card, chunk_prover)
+        with clock("cli"):
+            # and on the command line's in-process runs
+            paths["cli_launches"] = phase_cli(torch, report, card,
+                                              chunk_prover)
+    if "msm24" in phases:
+        with clock("msm24"):
+            paths["msm_2_24_launches"] = phase_msm24(torch, dev, report)
     if "mesh" in phases:
-        entry, mesh_launches = phase_mesh(torch, dev, report)
+        with clock("mesh"):
+            entry, mesh_launches, mesh_paths = phase_mesh(torch, dev, report,
+                                                          production)
         kernels.append(entry)
         launches.update(mesh_launches)
+        paths.update(mesh_paths)
     wall = time.time() - t_start
     report["wall_s"] = wall
     log(f"chip_smoke wall time: {wall:.1f} s")
@@ -336,12 +400,9 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] == "step":  # and its launches on the tape MSMs
             k.update(tape)
-        if k["name"] in served:  # and on the sequencer's served paths
-            k["sequencer_launches"] = served[k["name"]]
-        if k["name"] in cli:  # and on the command line's in-process runs
-            k["cli_launches"] = cli[k["name"]]
-        if k["name"] in shielded:  # a shielded proof's, step the keygen's
-            k["shielded_launches"] = shielded[k["name"]]
+        for field, counts in paths.items():  # and on the later paths
+            if k["name"] in counts:
+                k[field] = counts[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
         out.append(k)
@@ -1911,7 +1972,8 @@ def _segment_study(torch, pool, digits, curve, report) -> None:
     """One full 2^16-point segment of a chunk-size MSM: the lane sweep
     (whole-segment time of _device_msm per level-1 lane count and level-2
     cap), the kernel times at the earlier shapes and at the chosen ones, and
-    the chosen level-1 pass against the plain version on the card."""
+    the chosen shape's two run-scans and bucket tail against their plain
+    versions on the card (hold_segment)."""
     from zelana_tpu_torch.ops import curve_kernels as CK
     from zelana_tpu_torch.ops import msm_scan as MSM
 
@@ -1944,22 +2006,47 @@ def _segment_study(torch, pool, digits, curve, report) -> None:
     for tag, sched in (("earlier shape", earlier), ("chosen shape", d),
                        ("earlier shape, again", earlier)):
         _segment_kernels(torch, pool, sched, curve, report, tag)
-    mism, err = compare(torch, CK.runscan(pool, d["pid"], d["flag"], curve),
-                        CK.runscan_plain(pool, d["pid"], d["flag"], curve))
-    log(f"  runscan {curve} level 1, full segment at the chosen shape "
-        f"{tuple(d['flag'].shape)}, against the plain version: mismatches "
-        f"{mism}, max |diff| {err}")
+    hold_segment(torch, pool, d, curve, "full segment, chosen shape")
+
+
+def hold_segment(torch, pool, d, curve: str, what: str) -> int:
+    """One segment of an MSM held on the card: on `d`, its uploaded
+    schedule, the level-1 and level-2 run-scans and the bucket tail against
+    their plain versions, each on the kernel's own inputs; raises on any
+    difference. Returns the max |diff|."""
+    from zelana_tpu_torch.ops import curve_kernels as CK
+
     C = CK.rows(curve)
-    emit2 = CK.runscan(CK.runscan(pool, d["pid"], d["flag"], curve).view(
-        C, -1), d["pos2"], d["flag2"], curve, True).view(C, -1)
-    K = d["dense"].numel() // (MSM.SCAN_WINDOWS * MSM.SCAN_BUCKETS)
-    mism2, err2 = compare(torch, CK.bucket_tail(emit2, d["dense"], K, curve),
-                          CK.bucket_tail_plain(emit2, d["dense"], K, curve))
-    log(f"  bucket_tail {curve}, full segment at the chosen shape (K {K}), "
-        f"against the plain version: mismatches {mism2}, max |diff| {err2}")
-    if mism or mism2:
-        raise AssertionError(f"runscan / bucket_tail {curve}: the full "
-                             f"segment differs from the plain version")
+    emit = CK.runscan(pool, d["pid"], d["flag"], curve)
+    pool2 = emit.view(C, -1)
+    emit2 = CK.runscan(pool2, d["pos2"], d["flag2"], curve, True)
+    K = d["dense"].numel() // CK.NB
+    tail = CK.bucket_tail(emit2.view(C, -1), d["dense"], K, curve)
+    err = 0
+    for name, got, plain in (
+            (f"runscan level 1 {tuple(d['flag'].shape)}", emit,
+             lambda: CK.runscan_plain(pool, d["pid"], d["flag"], curve)),
+            (f"runscan level 2 {tuple(d['flag2'].shape)}", emit2,
+             lambda: CK.runscan_plain(pool2, d["pos2"], d["flag2"], curve,
+                                      True)),
+            (f"bucket_tail (K {K})", tail,
+             lambda: CK.bucket_tail_plain(emit2.view(C, -1), d["dense"], K,
+                                          curve))):
+        mism, diff = compare(torch, got, plain())
+        log(f"  {what}: {name} {curve} against the plain version: "
+            f"mismatches {mism}, max |diff| {diff}")
+        if mism:
+            raise AssertionError(f"{what}: {name} {curve} differs from its "
+                                 f"plain version")
+        err = max(err, diff)
+    return err
+
+
+def segment_schedule(limbs, dev) -> dict:
+    """The uploaded schedule of one segment of at most 2^16 scalars."""
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    return MSM._upload(MSM.build_schedule(MSM.scalar_digits(limbs)), dev)
 
 
 def _segment_kernels(torch, pool, d, curve, report, tag) -> None:
@@ -2017,24 +2104,43 @@ def _tile_points(curve: str) -> list:
     return pts
 
 
-def tiled_msm(torch, curve: str, n: int, rng, dev):
-    """An MSM with a closed-form answer: (pool, scalar limbs, result). The
-    (VC, n) pool tiles P_j = (j + 1) G, j < MSM_TILE, so the answer is
-    (sum_i s_i ((i mod MSM_TILE) + 1) mod r) G; scalars below 2^253."""
-    import numpy as np
-
-    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
-    from zelana_tpu_torch.fields.bn254 import R as FR
+def tiled_pool(torch, curve: str, lo: int, hi: int, dev):
+    """Columns [lo, hi) of the (VC, n) pool that tiles P_j = (j + 1) G,
+    j < MSM_TILE: the tile encoded once and gathered on the card, never a
+    host list of n points."""
     from zelana_tpu_torch.ops import msm_scan as MSM
 
-    G = G1 if curve == "g1" else G2
-    prep = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(
-        _tile_points(curve), dev)
-    pool = prep[0].repeat(1, -(-n // MSM_TILE))[:, :n].contiguous()
+    tile = (MSM.prepare_g1 if curve == "g1" else MSM.prepare_g2)(
+        _tile_points(curve), dev)[0]
+    cols = torch.arange(lo, hi, device=dev) % MSM_TILE
+    return tile.index_select(1, cols)
+
+
+def scalar_limbs(rng, n: int):
+    """(n, 4) uint64 limbs of uniform scalars below 2^253 (< r)."""
+    import numpy as np
+
     limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
-    limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
-    want = G.mul(G.generator(), _tiled_scalar(limbs, MSM_TILE) % FR)
-    return pool, limbs, want
+    limbs[:, 3] >>= np.uint64(2)
+    return limbs
+
+
+def tiled_want(curve: str, limbs):
+    """The closed form of the MSM of `limbs` over the tiled pool:
+    (sum_i s_i ((i mod MSM_TILE) + 1) mod r) G."""
+    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
+    from zelana_tpu_torch.fields.bn254 import R as FR
+
+    G = G1 if curve == "g1" else G2
+    return G.mul(G.generator(), _tiled_scalar(limbs, MSM_TILE) % FR)
+
+
+def tiled_msm(torch, curve: str, n: int, rng, dev):
+    """An MSM with a closed-form answer: (pool, scalar limbs, result) over
+    the tiled pool (tiled_pool, tiled_want); scalars below 2^253."""
+    limbs = scalar_limbs(rng, n)
+    return (tiled_pool(torch, curve, 0, n, dev), limbs,
+            tiled_want(curve, limbs))
 
 
 def _tiled_scalar(limbs, tile: int) -> int:
@@ -3997,10 +4103,12 @@ def recorded_merges():
         CK.merge_pairs = inner
 
 
-def check_merges(torch, calls, widths, what: str) -> list:
+def check_merges(torch, calls, widths, what: str,
+                 curves=("g1", "g2")) -> list:
     """merge_pairs against bucket_merge_plain (K = 2 over [a | b]) on each
-    (curve, a, b) of `calls`, bit for bit; fails unless G1 and G2 were both
-    held at every width of `widths`. Returns the (curve, width) held."""
+    (curve, a, b) of `calls`, bit for bit; fails unless every curve of
+    `curves` was held at every width of `widths`. Returns the (curve,
+    width) held."""
     from zelana_tpu_torch.ops import curve_kernels as CK
 
     seen = set()
@@ -4013,7 +4121,7 @@ def check_merges(torch, calls, widths, what: str) -> list:
             raise AssertionError(f"{what}: merge_pairs {curve} at width {w} "
                                  f"differs from bucket_merge_plain")
         seen.add((curve, w))
-    missing = sorted({(c, w) for c in ("g1", "g2") for w in widths} - seen)
+    missing = sorted({(c, w) for c in curves for w in widths} - seen)
     if missing:
         raise AssertionError(f"{what}: merge_pairs never ran at {missing}")
     return sorted(seen)
@@ -4067,17 +4175,26 @@ def _ntt_cross_kernel(torch, dev, rep) -> dict:
                   by)
 
 
-def phase_mesh(torch, dev, report) -> tuple:
-    """Returns (ntt_cross's kernels-line entry, the launches of ntt_cross
-    and jac_add, sharded_msm's combine, over the ranks' path). The ranks
-    run over NCCL, rank r on card r, where the host has MESH_WORLD cards,
-    else over gloo on the one card (NCCL refuses two ranks on one card)."""
-    from zelana_tpu_torch.parallel import distributed as D
-
+def mesh_backend(torch) -> str:
+    """NCCL, rank r on card r, where the host has MESH_WORLD cards, else
+    gloo on the one card (NCCL refuses two ranks on one card)."""
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= MESH_WORLD else "gloo"
     log(f"mesh: {cards} card(s), so the {MESH_WORLD} ranks run over "
         f"{backend}")
+    return backend
+
+
+def phase_mesh(torch, dev, report, production=None) -> tuple:
+    """Returns (ntt_cross's kernels-line entry, the launches of ntt_cross
+    and jac_add, sharded_msm's combine, over the ranks' path, the launches
+    of the BASELINE config 5 paths by field of the kernels line). Three
+    run_local calls: the mesh checks (mesh_rank), the 2^24-point MSM
+    (msm24_rank) and, with `production` (the production phase's prover
+    and batch), its first chunk proved over the ranks (chunk_rank)."""
+    from zelana_tpu_torch.parallel import distributed as D
+
+    backend = mesh_backend(torch)
     rep = report["mesh"] = {"backend": backend}
     entry = _ntt_cross_kernel(torch, dev, rep)
     t0 = time.time()
@@ -4106,7 +4223,13 @@ def phase_mesh(torch, dev, report) -> tuple:
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"the mesh path launched no {k}")
-    return entry, launches
+    paths = {"mesh_msm_2_24_launches": _mesh_msm24(backend, rep)}
+    if production is None:
+        log("mesh: the production phase did not run, so its chunk is not "
+            "proved over the ranks")
+    else:
+        paths["mesh_chunk_launches"] = _mesh_chunk(backend, *production, rep)
+    return entry, launches, paths
 
 
 def mesh_rank(mesh, seed: int) -> dict:
@@ -4118,7 +4241,6 @@ def mesh_rank(mesh, seed: int) -> dict:
     import numpy as np
     import torch
 
-    from zelana_tpu_torch.curves import g1 as G1, g2 as G2
     from zelana_tpu_torch.curves.point_array import PointArray
     from zelana_tpu_torch.fields.bn254 import R as FR
     from zelana_tpu_torch.groth16.keys import ProvingKey
@@ -4134,24 +4256,17 @@ def mesh_rank(mesh, seed: int) -> dict:
     dev, W = mesh.device, mesh.size
     rng = np.random.default_rng(seed)
 
-    def scalars(n):
-        limbs = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
-        limbs[:, 3] >>= np.uint64(2)  # < 2^253 < r
-        return limbs
-
     scan = {}
-    for curve, G, comps in (("g1", G1, 2), ("g2", G2, 4)):
+    for curve, comps in (("g1", 2), ("g2", 4)):
         tile = PointArray.from_points(_tile_points(curve), comps)
         idx = np.arange(W * MESH_SCAN) % MSM_TILE
-        limbs = scalars(W * MESH_SCAN)
+        limbs = scalar_limbs(rng, W * MESH_SCAN)
         scan[curve] = (PointArray(tile.arr[idx], tile.inf[idx], comps), limbs,
-                       G.mul(G.generator(),
-                             _tiled_scalar(limbs, MSM_TILE) % FR))
-    jac_pool = MSM.prepare_g1(_tile_points("g1"), dev)[0].repeat(
-        1, W * MESH_JAC // MSM_TILE).contiguous()
-    jac_limbs = scalars(W * MESH_JAC)
+                       tiled_want(curve, limbs))
+    jac_pool = tiled_pool(torch, "g1", 0, W * MESH_JAC, dev)
+    jac_limbs = scalar_limbs(rng, W * MESH_JAC)
     jac_digits = MSM.scalar_digits(jac_limbs)
-    jac_want = G1.mul(G1.generator(), _tiled_scalar(jac_limbs, MSM_TILE) % FR)
+    jac_want = tiled_want("g1", jac_limbs)
     x = rand_words(torch, rng, FR >> 224, MESH_NTT, dev)
     a, b = (rand_words(torch, rng, FR >> 224, MESH_MIMC, dev)
             for _ in range(2))
@@ -4232,6 +4347,418 @@ def mesh_rank(mesh, seed: int) -> dict:
             "launches": launches, "merges_held": held}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 5: the 2^24-point MSM on one card (`msm24`) and over the
+# ranks, and the production chunk proved over the ranks (`mesh`)
+# ---------------------------------------------------------------------------
+
+LONG_N = 1 << 24  # BASELINE.json configs[4]: a 2^24-point MSM
+LONG_SEED = 24
+# the host stages of a run-scan MSM: ops.msm_scan's functions, which
+# msm_begin / msm_end and the sharded MSM reach through the module
+LONG_HOST_CALLS = ("scalar_digits", "build_segment_schedules",
+                   "upload_segment_schedules", "_finish_multi")
+
+
+@functools.lru_cache(maxsize=None)
+def long_want():
+    """The closed form of the 2^24-point G1 MSM over the tiled pool with
+    the scalars of LONG_SEED."""
+    import numpy as np
+
+    return tiled_want("g1", scalar_limbs(np.random.default_rng(LONG_SEED),
+                                         LONG_N))
+
+
+def rss_mib() -> float:
+    """This process's resident set now (VmRSS), MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def rss_peak(period: float = 0.05):
+    """{"peak_mib": the largest rss_mib() sampled every `period` s on a
+    thread while in the block}: a lower bound of the block's peak. Neither
+    VmHWM (the chip host's kernel has none) nor getrusage's ru_maxrss (a
+    spawned rank keeps its parent's peak across fork and exec) gives a
+    rank's own peak."""
+    out = {"peak_mib": rss_mib()}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(period):
+            out["peak_mib"] = max(out["peak_mib"], rss_mib())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        out["peak_mib"] = max(out["peak_mib"], rss_mib())
+
+
+def with_rss_peak(fn):
+    """fn, its result dict given "peak_rss_mib": the sampled peak of the
+    process's resident set over the call (rss_peak)."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with rss_peak() as rss:
+            out = fn(*args, **kwargs)
+        out["peak_rss_mib"] = rss["peak_mib"]
+        return out
+
+    return call
+
+
+@contextlib.contextmanager
+def host_calls(module, names):
+    """Seconds and calls of the functions `names` of `module` while in the
+    block, for callers on one thread that reach them through the module:
+    {name: [seconds, calls]}."""
+    real = {n: getattr(module, n) for n in names}
+    spent = {n: [0.0, 0] for n in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+        return call
+
+    for n in names:
+        setattr(module, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n, f in real.items():
+            setattr(module, n, f)
+
+
+def _host_stages(spent, begin_s: float, wall_s: float) -> dict:
+    """Seconds of a run-scan MSM's host stages (host_calls over
+    LONG_HOST_CALLS) and what is left of msm_begin (the dispatch loop,
+    waiting on each segment past MAX_INFLIGHT) and of msm_end (the last
+    fetches)."""
+    s = {k: v[0] for k, v in spent.items()}
+    return {"digits_s": s["scalar_digits"],
+            "schedules_s": s["build_segment_schedules"],
+            "uploads_s": s["upload_segment_schedules"],
+            "dispatch_s": begin_s - s["scalar_digits"]
+            - s["build_segment_schedules"] - s["upload_segment_schedules"],
+            "finish_s": s["_finish_multi"],
+            "fetch_s": wall_s - begin_s - s["_finish_multi"]}
+
+
+def phase_msm24(torch, dev, report) -> dict:
+    """BASELINE config 5 on one card: the 2^24-point G1 MSM through
+    msm_scan.msm_begin / msm_end (256 segments of 2^16) over the tiled
+    pool, against its closed form; the launches counted from 0 just before
+    and read just after, the device's busy time under torch.profiler, the
+    host stages' seconds, the peak device memory and the process's peak
+    RSS; then the last segment's run-scans and bucket tail against their
+    plain versions. Returns the launches."""
+    import numpy as np
+
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    rep = report["msm24"] = {}
+    segments = -(-LONG_N // MSM.CHUNK_N)
+    with rss_peak() as rss:
+        t0 = time.time()
+        limbs = scalar_limbs(np.random.default_rng(LONG_SEED), LONG_N)
+        want = long_want()
+        pool = tiled_pool(torch, "g1", 0, LONG_N, dev)
+        torch.cuda.synchronize()
+        rep["inputs_s"] = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        with host_calls(MSM, LONG_HOST_CALLS) as spent, \
+                profiled(torch) as prof:
+            t0 = time.time()
+            handle = MSM.msm_begin((pool, np.zeros(LONG_N, bool), "g1"),
+                                   limbs, "g1")
+            begin_s = time.time() - t0
+            got = MSM.msm_end(handle)
+            wall_s = time.time() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    busy = _device_busy_ms(prof, "msm24")
+    seen = sum(e.count for e in device_events(prof) if "_kernel" in e.key)
+    rep.update(wall_s=wall_s, host=_host_stages(spent, begin_s, wall_s),
+               busy_ms=busy, kernels_seen=seen, launches=launches,
+               segments=segments,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               peak_rss_mib=rss["peak_mib"])
+    log(f"msm24: {LONG_N} points G1, {segments} segments of "
+        f"{MSM.CHUNK_N}: {wall_s:.2f} s wall (inputs {rep['inputs_s']:.2f} "
+        f"s before it), host stages "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rep["host"].items())
+        + f"; device busy {busy:.1f} ms ({busy / segments:.3f} ms a "
+        f"segment; {seen} of {sum(launches.values())} kernels in the "
+        f"profile); launches {launches}; peak device memory "
+        f"{rep['peak_device_bytes'] / 2**30:.2f} GiB; peak RSS of the main "
+        f"process {rep['peak_rss_mib']:.0f} MiB (sampled, inputs "
+        f"included)")
+    if got != want:
+        raise AssertionError("the one-card 2^24 MSM differs from its "
+                             "closed form")
+    expect = {"runscan": 2 * segments, "bucket_tail": 2 * segments}
+    if launches != expect:
+        raise AssertionError(f"msm24 launched {launches}, not {expect}")
+    log("msm24: equal to the closed form")
+    lo = LONG_N - MSM.CHUNK_N
+    rep["held_max_abs_err"] = hold_segment(
+        torch, pool[:, lo:], segment_schedule(limbs[lo:], dev), "g1",
+        "msm24 last segment")
+    del pool, handle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rank_line(r) -> str:
+    return (f"  rank {r['rank']} ({r['backend']}, {r['device']}): set-up "
+            f"{r['setup_s']:.1f} s, {r['wall_s']:.2f} s wall, device busy "
+            f"{r['busy_ms']:.1f} ms, collectives "
+            f"{1e3 * r['comm']['seconds']:.1f} ms host time, "
+            f"{r['comm']['bytes'] / 2**20:.2f} MiB sent in "
+            f"{r['comm']['calls']} calls; launches {r['launches']}; peak "
+            f"device memory {r['peak_device_bytes'] / 2**30:.2f} GiB, peak "
+            f"RSS {r['peak_rss_mib']:.0f} MiB")
+
+
+def _sum_launches(ranks) -> dict:
+    out = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def merge_widths(world: int, segments: int) -> list:
+    """The widths merge_pairs runs at in a sharded run-scan MSM: 8,192 where
+    a shard has more than one segment (their fold), then the reduction's
+    halves."""
+    return ([MSM_NB] if segments > 1 else []) + [
+        MSM_NB >> k for k in range(1, world.bit_length())]
+
+
+def _mesh_msm24(backend: str, rep) -> dict:
+    """The 2^24-point G1 MSM over MESH_WORLD ranks (msm24_rank), every
+    rank's answer against the closed form. Returns the ranks' launches."""
+    from zelana_tpu_torch.parallel import distributed as D
+
+    want = long_want()
+    t0 = time.time()
+    with rss_peak() as rss:
+        ranks = D.run_local(msm24_rank, MESH_WORLD, backend=backend,
+                            device="cuda", args=(want, LONG_N, None),
+                            timeout=900.0)
+    out = rep["msm_2_24"] = {"wall_s": time.time() - t0, "ranks": ranks,
+                             "main_peak_rss_mib": rss["peak_mib"]}
+    log(f"mesh 2^24 MSM: {MESH_WORLD} ranks over {backend}, "
+        f"{out['wall_s']:.1f} s wall with their start-up, "
+        f"{ranks[0]['segments']} segments of a {ranks[0]['shard']}-point "
+        f"shard a rank; every rank equal to the closed form; merge_pairs "
+        f"equal to bucket_merge_plain at {ranks[0]['merges_held']}; peak RSS "
+        f"of the main process meanwhile {rss['peak_mib']:.0f} MiB")
+    for r in ranks:
+        log(_rank_line(r) + "; host stages " + ", ".join(
+            f"{k} {v:.2f}" for k, v in r["host"].items()))
+    return _sum_launches(ranks)
+
+
+@with_rss_peak
+def msm24_rank(mesh, want, n: int, chunk_n) -> dict:
+    """One rank of the 2^24-point G1 MSM over the ranks (spawned by
+    run_local): all n scalars from LONG_SEED and this rank's shard of the
+    tiled pool, then msm_begin_sharded (chunk_n points a segment,
+    msm_scan.CHUNK_N for None; the segments added up on the card, then two
+    exchanges at four ranks) and msm_end, with the launch counts set to 0
+    just before, under torch.profiler; the answer against `want`, the
+    closed form; merge_pairs against bucket_merge_plain on the arrays it
+    added (the segments' fold at 8,192, the reduction at 4,096 and 2,048);
+    rank 0 also holds its last segment's run-scans and bucket tail."""
+    import numpy as np
+    import torch
+
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.parallel import sharded as SH
+
+    t0 = time.time()
+    W, chunk = mesh.size, chunk_n or MSM.CHUNK_N
+    limbs = scalar_limbs(np.random.default_rng(LONG_SEED), n)
+    shard, lo, hi = SH._shard_range(n, mesh)
+    pool = tiled_pool(torch, "g1", lo, lo + shard, mesh.device)
+    prep = SH.ShardedPool(pool, np.zeros(n, bool), "g1", n, shard)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    mesh.comm.update(seconds=0.0, bytes=0, calls=0)
+    cuda.reset_launches()
+    with host_calls(MSM, LONG_HOST_CALLS) as spent, profiled(torch) as prof, \
+            recorded_merges() as merges:
+        t0 = time.perf_counter()
+        handle = SH.msm_begin_sharded(prep, limbs, mesh, chunk_n=chunk_n)
+        begin_s = time.perf_counter() - t0
+        got = MSM.msm_end(handle)
+        wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    busy = sum(e.self_device_time_total
+               for e in device_events(prof, empty_ok=True)) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if got != want:
+        raise AssertionError(f"rank {mesh.rank}: the sharded 2^24 MSM "
+                             f"differs from its closed form")
+    segments = -(-shard // chunk)
+    # a merge a segment, a merge_pairs a further segment and a reduction
+    # step, the tree
+    expect = {"runscan": 2 * segments,
+              "bucket_tail": 2 * segments + W.bit_length() - 1}
+    if launches != expect:
+        raise AssertionError(f"rank {mesh.rank} launched {launches}, not "
+                             f"{expect}")
+    held = check_merges(torch, merges, merge_widths(W, segments),
+                        f"rank {mesh.rank}", curves=("g1",))
+    err = 0
+    if mesh.rank == 0:
+        s_lo = (segments - 1) * chunk
+        err = hold_segment(
+            torch, pool[:, s_lo:],
+            segment_schedule(limbs[lo + s_lo:hi], mesh.device), "g1",
+            "rank 0's last segment")
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": mesh.backend, "setup_s": setup_s, "wall_s": wall_s,
+            "host": _host_stages(spent, begin_s, wall_s), "busy_ms": busy,
+            "comm": dict(mesh.comm), "launches": launches,
+            "peak_device_bytes": peak, "merges_held": held,
+            "segments": segments, "shard": shard,
+            "held_max_abs_err": err}
+
+
+def _mesh_chunk(backend: str, prover, batch, rep) -> dict:
+    """The production phase's first chunk proved over MESH_WORLD ranks
+    (chunk_rank): its key handed over through ProvingKey.save_npz in a
+    temporary directory, the chunk through run_local's arguments; every
+    rank's proof byte-equal to the one-card proof. Returns the ranks'
+    launches."""
+    import tempfile
+
+    from zelana_tpu_torch.parallel import distributed as D
+
+    chunk, want = batch["chunks"][0], batch["proofs"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "production_pk.npz")
+        t0 = time.time()
+        prover.pk.save_npz(path)
+        save_s = time.time() - t0
+        size = os.path.getsize(path)
+        t0 = time.time()
+        with rss_peak() as rss:
+            ranks = D.run_local(
+                chunk_rank, MESH_WORLD, backend=backend, device="cuda",
+                args=(path, prover.capacity, prover.tree_depth, chunk,
+                      PRODUCTION_BATCH, want.proof_bytes.hex()),
+                timeout=900.0)
+        wall = time.time() - t0
+    rep["production_chunk"] = {"key_save_s": save_s, "key_bytes": size,
+                               "wall_s": wall, "ranks": ranks,
+                               "main_peak_rss_mib": rss["peak_mib"]}
+    r0 = ranks[0]
+    log(f"mesh production chunk: key saved in {save_s:.1f} s "
+        f"({size / 2**20:.0f} MiB); {MESH_WORLD} ranks over {backend}, "
+        f"{wall:.1f} s wall with their start-up; shards {r0['shards']}, "
+        f"segments {r0['segments']}; every rank's proof byte-equal to the "
+        f"one-card proof and verified; merge_pairs equal to "
+        f"bucket_merge_plain at {r0['merges_held']}; peak RSS of the main "
+        f"process meanwhile {rss['peak_mib']:.0f} MiB")
+    for r in ranks:
+        log(_rank_line(r) + f"; key load {r['load_s']:.1f} s, pools "
+            f"{r['pools_s']:.1f} s, verify {r['verify_s']:.1f} s")
+    log("  rank 0's prove, its phases:")
+    for at, label in r0["phases"]:
+        log(f"    [+{at:8.3f} s] {label}")
+    return _sum_launches(ranks)
+
+
+@with_rss_peak
+def chunk_rank(mesh, key_path: str, capacity, depth: int, chunk,
+               batch_id: int, want_hex: str) -> dict:
+    """One rank of the production chunk proved over the ranks (spawned by
+    run_local): the key loaded from key_path, this rank's shards of its
+    query pools, then prove_chunks([chunk], batch_id) through the mesh
+    with the launch counts set to 0 just before, under torch.profiler; the
+    proof byte-equal to want_hex (the one-card proof) and verified;
+    merge_pairs against bucket_merge_plain on the arrays it added."""
+    import torch
+
+    from zelana_tpu_torch.groth16.keys import ProvingKey, prepare_queries
+    from zelana_tpu_torch.ops import cuda
+    from zelana_tpu_torch.ops import msm_scan as MSM
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+    from zelana_tpu_torch.trace import phase_log_start, phase_log_take
+
+    t0 = time.time()
+    pk = ProvingKey.load_npz(key_path)
+    load_s = time.time() - t0
+    W = mesh.size
+    prover = Groth16ChunkProver(pk, capacity, depth, device=mesh.device,
+                                mesh=mesh)
+    t0 = time.time()
+    pools = prepare_queries(pk, mesh.device, mesh)
+    torch.cuda.synchronize()
+    pools_s = time.time() - t0
+    shards = {k: p.shard for k, p in pools.items()}
+    torch.cuda.reset_peak_memory_stats()
+    mesh.comm.update(seconds=0.0, bytes=0, calls=0)
+    cuda.reset_launches()
+    with profiled(torch) as prof, recorded_merges() as merges:
+        phase_log_start()
+        t0 = time.time()
+        cp = prover.prove_chunks([chunk], batch_id)[0]
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        phases = _phases(phase_log_take(), t0, show=False)
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    busy = sum(e.self_device_time_total
+               for e in device_events(prof, empty_ok=True)) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if cp.proof_bytes.hex() != want_hex:
+        raise AssertionError(f"rank {mesh.rank}: the mesh proof differs from "
+                             f"the one-card proof")
+    t0 = time.time()
+    if not prover.verify_chunk(cp):
+        raise AssertionError(f"rank {mesh.rank}: the mesh proof does not "
+                             f"verify")
+    verify_s = time.time() - t0
+    segments = {k: -(-v // MSM.CHUNK_N) for k, v in shards.items()}
+    expect = {"ntt_pass": 21, "runscan": 2 * sum(segments.values()),
+              "bucket_tail": sum(2 * s + W.bit_length() - 1
+                                 for s in segments.values())}
+    if launches != expect:
+        raise AssertionError(f"rank {mesh.rank} launched {launches}, not "
+                             f"{expect}")
+    held = check_merges(torch, merges,
+                        merge_widths(W, max(segments.values())),
+                        f"rank {mesh.rank}")
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": mesh.backend, "setup_s": load_s + pools_s,
+            "load_s": load_s, "pools_s": pools_s, "wall_s": wall_s,
+            "verify_s": verify_s, "busy_ms": busy, "comm": dict(mesh.comm),
+            "launches": launches, "peak_device_bytes": peak,
+            "merges_held": held,
+            "shards": shards, "segments": segments, "phases": phases}
+
+
 def device_events(prof, empty_ok: bool = False) -> list:
     """The profile's device-side events (kernels, copies, sets). A host op
     (aten::copy_, aten::cat) carries the time of the kernels it launched
@@ -4261,10 +4788,11 @@ def _device_busy_ms(prof, what: str) -> float:
     return busy
 
 
-def _phases(entries, t0) -> list:
-    """Log and return the (seconds since t0, label) of trace entries."""
+def _phases(entries, t0, show: bool = True) -> list:
+    """Return (and log, with `show`) the (seconds since t0, label) of trace
+    entries."""
     out = [(round(at - t0, 3), label) for at, _, label, _thread in entries]
-    for at, label in out:
+    for at, label in out if show else ():
         log(f"  [+{at:8.3f} s] {label}")
     return out
 

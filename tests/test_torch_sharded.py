@@ -7,7 +7,9 @@ Each world size (2 and 4) is spawned once per module: its ranks run every
 case of tests/torch_mesh_ranks.py:sharded_checks and hand the results
 back; the JAX side runs in this process meanwhile (the longest first).
 Every rank must return the same answer, and it must equal the reference
-exactly."""
+exactly. The four ranks also prove the dryrun chunk through prove_chunks
+(about 100 s a rank on the plain kernels), so the module takes about four
+minutes; its ranks get 1,200 s."""
 
 import concurrent.futures as cf
 import json
@@ -28,8 +30,17 @@ from zelana_tpu_torch.parallel import distributed as D
 torch.set_num_threads(1)  # many small int64 ops: threads only contend
 
 TILE_G1, TILE_G2 = 64, 16
-CUBIC_VECTOR = os.path.join(os.path.dirname(__file__), "..",
-                            "zelana_tpu_torch", "testdata", "cubic_proof.json")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+CUBIC_VECTOR = os.path.join(ROOT, "zelana_tpu_torch", "testdata",
+                            "cubic_proof.json")
+CHUNK_VECTOR = os.path.join(ROOT, "zelana_tpu_torch", "testdata",
+                            "chunk_101_d1_proof.json")
+KEY_101 = os.path.join(ROOT, "artifacts", "chunk_101_d1_pk.npz")
+# shards of 769 points at world 4 in segments of 256: 256 / 256 / 256 / 1,
+# the last shard three short; identity points in later segments of several
+# shards (shard 2's one-point segment among them) and at the last point
+SEG_N = 4 * 769 - 3
+SEG_HOLES = {300, 769 + 600, 2 * 769 + 768, 3 * 769 + 520, SEG_N - 1}
 
 
 def _cases(world: int, key_path: str) -> dict:
@@ -53,9 +64,13 @@ def _cases(world: int, key_path: str) -> dict:
                          [rng.randrange(FR) for _ in range(16)])
         cases["msm"] = ([JG1.mul(g, rng.randrange(1, FR)) for _ in range(16)],
                         [rng.randrange(FR) for _ in range(16)])
-        # shard 640 in segments of 256: 256 / 256 / 128
-        cases["segments"] = (32, 4 * 640,
-                             [rng.randrange(FR) for _ in range(4 * 640)], 256)
+        for key, curve, tile in (("segments", "g1", TILE_G1),
+                                 ("segments_g2", "g2", TILE_G2)):
+            cases[key] = (curve, tile, SEG_N,
+                          [rng.randrange(FR) for _ in range(SEG_N)], 256,
+                          SEG_HOLES)
+        with open(CHUNK_VECTOR) as f:
+            cases["chunk"] = (KEY_101, json.load(f)["batch_id"])
     if world == 2:
         cases["prove"] = (key_path, 3, 7)
     return cases
@@ -82,8 +97,22 @@ def runs(cases):
     the one it reads."""
     with cf.ThreadPoolExecutor(2) as ex:
         yield {w: ex.submit(D.run_local, R.sharded_checks, w, "gloo", "cpu",
-                            (cases[w],), 600.0)
+                            (cases[w],), 1200.0)
                for w in (2, 4)}
+
+
+@pytest.fixture(scope="module")
+def segment_refs(cases):
+    """The JAX package's host MSM of each segment case (about a minute of
+    Python in all, while the ranks run)."""
+    out = {}
+    for key in ("segments", "segments_g2"):
+        curve, tile, n, scalars, _, holes = cases[4][key]
+        G = JG1 if curve == "g1" else JG2
+        base = [G.mul(G.generator(), j + 1) for j in range(tile)]
+        out[key] = G.msm([None if i in holes else base[i % tile]
+                          for i in range(n)], scalars)
+    return out
 
 
 def _result(runs, world: int, key: str):
@@ -103,6 +132,33 @@ def _ints(words_u32: np.ndarray) -> list:
     from zelana_tpu_torch.ops import limbs as L
 
     return L.decode_mont(words_u32, L.FR)
+
+
+def test_msm_scan_segments_match_host(runs, segment_refs):
+    """msm_scan on one device over five segments of chunk_n = 256
+    (build_segment_schedules; the last 76 points) added up on the host,
+    identity points in the second, third and last: the closed form and the
+    JAX package's host MSM. It asks for the ranks and the segment cases'
+    references first, so they run meanwhile."""
+    from zelana_tpu_torch.ops import msm_scan as MSM
+
+    rng = random.Random(5)
+    n, holes = 4 * 256 + 76, {300, 700, 4 * 256 + 75}
+    scalars = [rng.randrange(FR) for _ in range(n)]
+    pts = R.tile_points("g1", TILE_G1)
+    prep = MSM.prepare_g1([None if i in holes else pts[i % TILE_G1]
+                           for i in range(n)], "cpu")
+    digits = MSM.scalar_digits(scalars)
+    segs = MSM.build_segment_schedules(digits, chunk_n=256)
+    assert [s["hi"] - s["lo"] for s in segs] == [256] * 4 + [76]
+    got = MSM.msm_end(MSM.msm_begin_scheds(
+        prep, segs, MSM._inf_correction(digits, prep[1])))
+    want = _closed_form("g1", TILE_G1, n, [0 if i in holes else x
+                                           for i, x in enumerate(scalars)])
+    base = [JG1.mul(JG1.generator(), j + 1) for j in range(TILE_G1)]
+    assert JG1.msm([None if i in holes else base[i % TILE_G1]
+                    for i in range(n)], scalars) == want
+    assert got == want
 
 
 def test_sharded_msm_matches_jax(runs, cases):
@@ -183,13 +239,48 @@ def test_sharded_msm_scan_identity_points(runs, cases, world):
     assert _result(runs, world, "msm_scan_inf") == want
 
 
-def test_msm_begin_sharded_segments(runs, cases):
-    """Shards of 640 points in segments of chunk_n = 256 (256 / 256 /
-    128), added up on each rank before the reduction."""
-    tile, n, scalars, _ = cases[4]["segments"]
-    assert _result(runs, 4, "segments_shard") == 640
-    assert _result(runs, 4, "segments") == _closed_form("g1", tile, n,
-                                                         scalars)
+def _segments(runs, cases, segment_refs, key: str) -> None:
+    curve, tile, n, scalars, _, holes = cases[4][key]
+    want = _closed_form(curve, tile, n, [0 if i in holes else x
+                                         for i, x in enumerate(scalars)])
+    assert segment_refs[key] == want
+    assert _result(runs, 4, key + "_shard") == 769
+    assert _result(runs, 4, key) == want
+
+
+def test_msm_begin_sharded_segments(runs, cases, segment_refs):
+    """G1 at world 4: shards of 769 points in segments of chunk_n = 256
+    (256 / 256 / 256 / 1), added up on each rank before the reduction;
+    the last shard three short; identity points in later segments of
+    several shards, corrected once over the global digits: the closed form
+    and the JAX package's host MSM."""
+    _segments(runs, cases, segment_refs, "segments")
+
+
+def test_msm_begin_sharded_segments_g2(runs, cases, segment_refs):
+    """The same segment loop in G2."""
+    _segments(runs, cases, segment_refs, "segments_g2")
+
+
+def test_prove_chunks_through_mesh_matches_vector(runs, cases):
+    """Groth16ChunkProver.prove_chunks of the dryrun chunk over four gloo
+    ranks (the CPU twin of chip_smoke.py's production chunk over the
+    ranks): the same proof bytes on every rank, equal to the JAX package's
+    proof of this chunk and batch_id (testdata/chunk_101_d1_proof.json),
+    and it verifies."""
+    from zelana_tpu_torch.groth16.keys import ProvingKey
+    from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+    from zelana_tpu_torch.runtime.coordinator import ChunkProof
+
+    with open(CHUNK_VECTOR) as f:
+        vec = json.load(f)
+    got = _result(runs, 4, "chunk")
+    assert got.hex() == vec["proof_bytes"]
+    prover = Groth16ChunkProver(ProvingKey.load_npz(KEY_101), (1, 0, 1), 1,
+                                device="cpu")
+    assert prover.verify_chunk(ChunkProof(
+        0, got, [int(v) for v in vec["public_inputs"]], 0,
+        bytes.fromhex(vec["public_witness"])))
 
 
 def test_prove_through_mesh_matches_jax(runs, cases, cubic_key):

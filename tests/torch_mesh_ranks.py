@@ -33,6 +33,22 @@ class Cubic:
         ((x * x) * x + x + cs.constant(5)).enforce_equal(out)
 
 
+def dryrun_chunk():
+    """The (1,0,1) depth-1 dryrun chunk of
+    zelana_tpu_torch/testdata/chunk_101_d1_proof.json: a transfer and a
+    full shielded spend (tests/test_torch_chunk.py's _dryrun_chunks)."""
+    from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
+    from zelana_tpu_torch.runtime.coordinator import Dispatcher
+
+    b = ChunkWitnessBuilder(1)
+    b.fund(1, 100)  # depth-1 SMT: positions pk & 1
+    b.fund(2, 0)
+    note = b.add_note(spending_key=777, value=9, blinding=42)
+    return Dispatcher.build_chunks_with_witness(
+        b, [(1, 2, 10)], [], [("full", note, 777, 0xFACE, 9, 7)],
+        capacity=(1, 0, 1), pre_shielded_root=b.shielded_root())[0]
+
+
 def _words(vals):
     from zelana_tpu_torch.ops import limbs as L
 
@@ -79,13 +95,16 @@ def sharded_checks(mesh, cases: dict) -> dict:
         out["msm_scan_inf"] = SH.sharded_msm_scan(
             [None if i in holes else pts[i % tile] for i in range(n)],
             scalars, mesh)
-    if "segments" in cases:
-        tile, n, scalars, chunk_n = cases["segments"]
-        pts = tile_points("g1", tile)
-        prep = SH.prepare_g1_sharded([pts[i % tile] for i in range(n)], mesh)
-        out["segments"] = MSM.msm_end(SH.msm_begin_sharded(
-            prep, scalars, mesh, chunk_n=chunk_n))
-        out["segments_shard"] = prep.shard
+    for key in ("segments", "segments_g2"):
+        if key in cases:
+            curve, tile, n, scalars, chunk_n, holes = cases[key]
+            pts = tile_points(curve, tile)
+            prep = SH._prepare_sharded(
+                [None if i in holes else pts[i % tile] for i in range(n)],
+                mesh, curve)
+            out[key] = MSM.msm_end(SH.msm_begin_sharded(
+                prep, scalars, mesh, chunk_n=chunk_n))
+            out[key + "_shard"] = prep.shard
     if "prove" in cases:
         from zelana_tpu_torch.groth16.keys import ProvingKey
         from zelana_tpu_torch.groth16.prove import prove
@@ -95,6 +114,15 @@ def sharded_checks(mesh, cases: dict) -> dict:
         proof = prove(pk, Cubic(x), batch_id=batch_id, device="cpu",
                       mesh=mesh)
         out["prove"] = proof.serialize_compressed()
+    if "chunk" in cases:
+        from zelana_tpu_torch.groth16.keys import ProvingKey
+        from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
+
+        path, batch_id = cases["chunk"]
+        prover = Groth16ChunkProver(ProvingKey.load_npz(path), (1, 0, 1), 1,
+                                    device="cpu", mesh=mesh)
+        out["chunk"] = prover.prove_chunks([dryrun_chunk()],
+                                           batch_id)[0].proof_bytes
     out["comm"] = dict(mesh.comm)
     return out
 
