@@ -3681,7 +3681,6 @@ def phase_production(torch, report, mesh: bool = False) -> tuple:
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
     from zelana_tpu_torch.runtime.chunk_witness import ChunkWitnessBuilder
-    from zelana_tpu_torch.trace import phase_log_start, phase_log_take
 
     cap, depth = PRODUCTION
     rep = report["production"] = {}
@@ -3691,13 +3690,13 @@ def phase_production(torch, report, mesh: bool = False) -> tuple:
     # under the profiler: its device busy time splits keygen's wall time
     # into device work and the host around it
     with profiled(torch) as prof:
-        phase_log_start()
+        since = time.perf_counter()
         t0 = time.time()
         prover = Groth16ChunkProver.setup(cap, depth, seed=0)
         torch.cuda.synchronize()
         rep["keygen_s"] = time.time() - t0
         launches = dict(cuda.LAUNCHES)
-        rep["keygen_phases"] = _phases(phase_log_take(), t0)
+        rep["keygen_phases"] = _phases(since)
     busy = _device_busy_ms(prof, "keygen")
     rep["keygen_device_busy_s"] = busy / 1e3
     rep["keygen_launches"] = launches
@@ -3766,12 +3765,12 @@ def phase_production(torch, report, mesh: bool = False) -> tuple:
     # one chunk prove under the profiler: device busy time against wall
     cuda.reset_launches()
     with profiled(torch) as prof:
-        phase_log_start()
+        since = time.perf_counter()
         t0 = time.time()
         again = prover.prove_chunk(chunks[0], batch_id=PRODUCTION_BATCH)
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-        phases = _phases(phase_log_take(), t0)
+        phases = _phases(since)
     if again.proof_bytes != cps[0].proof_bytes:
         raise AssertionError("prove_chunk and prove_chunks differ on chunk 0")
     one_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
@@ -4685,8 +4684,8 @@ def _mesh_chunk(backend: str, prover, batch, rep) -> dict:
         log(_rank_line(r) + f"; key load {r['load_s']:.1f} s, pools "
             f"{r['pools_s']:.1f} s, verify {r['verify_s']:.1f} s")
     log("  rank 0's prove, its phases:")
-    for at, label in r0["phases"]:
-        log(f"    [+{at:8.3f} s] {label}")
+    for at, name, ms, thread in r0["phases"]:
+        log(f"    [+{at:8.3f} s] {name:22s} {ms:10.1f} ms  {thread}")
     return _sum_launches(ranks)
 
 
@@ -4705,7 +4704,6 @@ def chunk_rank(mesh, key_path: str, capacity, depth: int, chunk,
     from zelana_tpu_torch.ops import cuda
     from zelana_tpu_torch.ops import msm_scan as MSM
     from zelana_tpu_torch.runtime.chunk_prover import Groth16ChunkProver
-    from zelana_tpu_torch.trace import phase_log_start, phase_log_take
 
     t0 = time.time()
     pk = ProvingKey.load_npz(key_path)
@@ -4722,12 +4720,12 @@ def chunk_rank(mesh, key_path: str, capacity, depth: int, chunk,
     mesh.comm.update(seconds=0.0, bytes=0, calls=0)
     cuda.reset_launches()
     with profiled(torch) as prof, recorded_merges() as merges:
-        phase_log_start()
+        since = time.perf_counter()
         t0 = time.time()
         cp = prover.prove_chunks([chunk], batch_id)[0]
         torch.cuda.synchronize()
         wall_s = time.time() - t0
-        phases = _phases(phase_log_take(), t0, show=False)
+        phases = _phases(since, show=False)
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     busy = sum(e.self_device_time_total
                for e in device_events(prof, empty_ok=True)) / 1e3
@@ -4788,12 +4786,17 @@ def _device_busy_ms(prof, what: str) -> float:
     return busy
 
 
-def _phases(entries, t0, show: bool = True) -> list:
-    """Return (and log, with `show`) the (seconds since t0, label) of trace
-    entries."""
-    out = [(round(at - t0, 3), label) for at, _, label, _thread in entries]
-    for at, label in out if show else ():
-        log(f"  [+{at:8.3f} s] {label}")
+def _phases(since: float, show: bool = True) -> list:
+    """Return (and log, with `show`) the spans (zelana_tpu_torch.trace)
+    that started at or after `since` (time.perf_counter()), in the order
+    they ended: (seconds from `since` to the span's end, name, ms, thread
+    name)."""
+    from zelana_tpu_torch import trace
+
+    out = [(round(r.end - since, 3), r.name, round(1e3 * (r.end - r.start), 3),
+            r.thread_name) for r in trace.spans() if r.start >= since]
+    for at, name, ms, thread in out if show else ():
+        log(f"  [+{at:8.3f} s] {name:22s} {ms:10.1f} ms  {thread}")
     return out
 
 

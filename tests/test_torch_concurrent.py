@@ -14,8 +14,8 @@ first calls, and concurrent proofs are byte-equal to the JAX package's.
   (csrc/mimc.cpp fills its round constants at its first hash behind a
   plain flag); then `hash2_be` from 8 threads equal to the JAX package's
   host MiMC.
-- `trace`: two threads' phase logs open at once, each entry tagged with its
-  thread.
+- `trace`: two threads' spans recorded at once, each tagged with its
+  thread and request, and handed to worker threads with their parent.
 
 Each patched build function sleeps a little, so that threads which ask
 first all reach it while the first build runs."""
@@ -167,20 +167,30 @@ def test_native_mimc_loads_once(monkeypatch):
 
 
 def test_phase_logs_of_two_threads():
-    """Each thread's log holds both threads' entries, each tagged with its
-    thread; neither thread's start wipes the other's log."""
+    """Two threads' spans recorded at once are both kept, each tagged with
+    its thread and request; work one of them hands to a worker thread
+    (trace.carry) keeps that thread's parent and request."""
     both = threading.Barrier(2)
 
-    def prove_like(label):
-        TT.phase_log_start()
-        both.wait()  # both logs open
-        TT.trace(label, time.time())
-        both.wait()  # both entries in
-        return threading.current_thread().name, TT.phase_log_take()
+    def on_worker(label):
+        with TT.span(f"{label}.worker"):
+            pass
 
-    (one, log_one), (two, log_two) = at_once(
+    def prove_like(label):
+        with TT.span(label, request=label) as outer:
+            both.wait()  # both spans open
+            with cf.ThreadPoolExecutor(1) as ex:
+                ex.submit(TT.carry(on_worker), label).result()
+            both.wait()  # both workers' spans in
+        return threading.current_thread().name, outer.id
+
+    since = time.perf_counter()
+    (one, id_one), (two, id_two) = at_once(
         [lambda: prove_like("one"), lambda: prove_like("two")])
-    for log in (log_one, log_two):
-        assert sorted((e[2], e[3]) for e in log) == [("one", one),
-                                                     ("two", two)]
-    assert TT.phase_log_take() == []
+    rows = {r.name: r for r in TT.spans() if r.start >= since}
+    assert sorted(rows) == ["one", "one.worker", "two", "two.worker"]
+    for label, name, sid in (("one", one, id_one), ("two", two, id_two)):
+        assert (rows[label].thread_name, rows[label].request) == (name, label)
+        worker = rows[f"{label}.worker"]
+        assert (worker.parent, worker.request) == (sid, label)
+        assert worker.thread_name != name

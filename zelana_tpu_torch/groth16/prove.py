@@ -30,7 +30,7 @@ one-device proof.
 from __future__ import annotations
 
 import concurrent.futures as _cf
-import time
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,8 +45,7 @@ from ..ops import ntt as NTT
 from ..ops import staging
 from ..parallel import distributed as D
 from ..poly.domain import Domain
-from ..trace import phase_log_start, phase_log_take  # noqa: F401
-from ..trace import trace as _trace
+from ..trace import carry, span
 from .keys import Proof, ProvingKey, prepare_queries
 from .qap import matrix_vector_evals
 from .stdrng import StdRng, rand_fp
@@ -116,14 +115,16 @@ def _synthesize_dsl(circuit, check: bool):
     """Host stage of a DSL prove: synthesis, matrices and assignment."""
     from ..r1cs.system import ConstraintSystem
 
-    cs = ConstraintSystem()
-    circuit.generate_constraints(cs)
-    if check:
-        bad = cs.is_satisfied()
-        if bad is not None:
-            raise ValueError(f"constraint {bad} unsatisfied; witness invalid")
-    A, B, C = cs.matrices()
-    return A, B, C, cs.full_assignment(), cs.num_instance
+    with span("prove.synthesize_dsl"):
+        cs = ConstraintSystem()
+        circuit.generate_constraints(cs)
+        if check:
+            bad = cs.is_satisfied()
+            if bad is not None:
+                raise ValueError(
+                    f"constraint {bad} unsatisfied; witness invalid")
+        A, B, C = cs.matrices()
+        return A, B, C, cs.full_assignment(), cs.num_instance
 
 
 def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
@@ -137,17 +138,33 @@ def _prove_from_parts(pk: ProvingKey, parts, batch_id: int,
     s = rand_fp(rng, FR)
 
     # the h download streams back while this thread dispatches the MSMs
-    h_dev, m = witness_map_dispatch(A, B, C, z, num_instance, dev)
-    h_handle = staging.download(h_dev)
-    q = prepare_queries(pk, dev, mesh)
-    digits_z = MSM.scalar_digits(z)
+    with span("prove.witness_map"):
+        h_dev, m = witness_map_dispatch(A, B, C, z, num_instance, dev)
+        h_handle = staging.download(h_dev)
+    with span("prove.queries"):
+        q = prepare_queries(pk, dev, mesh)
+    with span("prove.z_digits"):
+        digits_z = MSM.scalar_digits(z)
     return _msms_and_assembly(
         pk, q, r, s, digits_z, None,
-        lambda: MSM.scalar_digits(witness_map_collect(h_handle, m)), dev,
-        mesh=mesh)
+        functools.partial(_h_digits, h_handle,
+                          lambda w: L.decode_mont(w, L.FR)[:m - 1]),
+        dev, mesh)
 
 
-def _sharded_msms(q, digits_z, segs_z, h_digits, mesh, t0) -> list:
+def _h_digits(h_handle, decode):
+    """The h coefficients' digits: wait for their download (a
+    staging.download handle), decode the words on the host, take the
+    digits."""
+    with span("h.fetch"):
+        words = staging.fetch(h_handle)
+    with span("h.decode"):
+        h = decode(words)
+    with span("h.digits"):
+        return MSM.scalar_digits(h)
+
+
+def _sharded_msms(q, digits_z, segs_z, h_digits, mesh) -> list:
     """The five MSMs over the mesh, h last: the a/b1/l/b2 MSMs (the scalars
     z, one shared schedule set of this rank's shard, built unless given)
     run while the h coefficients stream back. Handles in the order a, b1,
@@ -155,41 +172,45 @@ def _sharded_msms(q, digits_z, segs_z, h_digits, mesh, t0) -> list:
     from ..parallel import sharded as SH
 
     if segs_z is None:
-        segs_z = SH.shard_schedules(digits_z, q["a"].n, mesh)
-        _trace("z shard schedules built", t0)
-    t_a, t_b1, t_l, t_b2 = (
-        SH.msm_begin_scheds_sharded(q[k], segs_z, mesh,
-                                    MSM._inf_correction(digits_z, q[k].inf))
-        for k in ("a", "b1", "l", "b2"))
-    _trace("a/b1/l/b2 MSMs through the mesh (one shared schedule)", t0)
-    t_h = SH.msm_begin_sharded(q["h"], None, mesh, digits=h_digits())
-    _trace("h MSM through the mesh", t0)
+        with span("msm.z_schedules"):
+            segs_z = SH.shard_schedules(digits_z, q["a"].n, mesh)
+    with span("msm.dispatch"):
+        t_a, t_b1, t_l, t_b2 = (
+            SH.msm_begin_scheds_sharded(
+                q[k], segs_z, mesh, MSM._inf_correction(digits_z, q[k].inf))
+            for k in ("a", "b1", "l", "b2"))
+    with span("h.stage"):
+        digits_h = h_digits()
+    with span("msm.dispatch"):
+        t_h = SH.msm_begin_sharded(q["h"], None, mesh, digits=digits_h)
     return [t_a, t_b1, t_h, t_b2, t_l]
 
 
 def _msms_and_assembly(pk, q, r, s, digits_z, segs_z, h_digits, dev,
-                       t0=None, mesh=None) -> Proof:
+                       mesh=None) -> Proof:
     """The five MSMs (_local_msms on one device, _sharded_msms over a
     mesh) and the host assembly. h_digits() downloads and decodes the h
     coefficients and returns their digits."""
-    handles = (_sharded_msms(q, digits_z, segs_z, h_digits, mesh, t0)
+    handles = (_sharded_msms(q, digits_z, segs_z, h_digits, mesh)
                if mesh is not None else
-               _local_msms(q, digits_z, segs_z, h_digits, dev, t0))
-    g_a_sum, g_b1_sum, h_sum, g_b2_sum, l_sum = MSM.msm_end_many(handles)
-    _trace("all five MSMs finished + downloaded", t0)
+               _local_msms(q, digits_z, segs_z, h_digits, dev))
+    with span("msm.end"):
+        g_a_sum, g_b1_sum, h_sum, g_b2_sum, l_sum = MSM.msm_end_many(handles)
 
-    g_a = G1.add(G1.add(pk.vk.alpha_g1, g_a_sum), G1.mul(pk.delta_g1, r))
-    g_b1 = G1.add(G1.add(pk.beta_g1, g_b1_sum), G1.mul(pk.delta_g1, s))
-    g_b2 = G2.add(G2.add(pk.vk.beta_g2, g_b2_sum), G2.mul(pk.vk.delta_g2, s))
+    with span("prove.assembly"):
+        g_a = G1.add(G1.add(pk.vk.alpha_g1, g_a_sum), G1.mul(pk.delta_g1, r))
+        g_b1 = G1.add(G1.add(pk.beta_g1, g_b1_sum), G1.mul(pk.delta_g1, s))
+        g_b2 = G2.add(G2.add(pk.vk.beta_g2, g_b2_sum),
+                      G2.mul(pk.vk.delta_g2, s))
 
-    c_pt = G1.add(l_sum, h_sum)
-    c_pt = G1.add(c_pt, G1.mul(g_a, s))
-    c_pt = G1.add(c_pt, G1.mul(g_b1, r))
-    c_pt = G1.add(c_pt, G1.neg(G1.mul(pk.delta_g1, r * s % FR)))
-    return Proof(a=g_a, b=g_b2, c=c_pt)
+        c_pt = G1.add(l_sum, h_sum)
+        c_pt = G1.add(c_pt, G1.mul(g_a, s))
+        c_pt = G1.add(c_pt, G1.mul(g_b1, r))
+        c_pt = G1.add(c_pt, G1.neg(G1.mul(pk.delta_g1, r * s % FR)))
+        return Proof(a=g_a, b=g_b2, c=c_pt)
 
 
-def _local_msms(q, digits_z, segs_z, h_digits, dev, t0) -> list:
+def _local_msms(q, digits_z, segs_z, h_digits, dev) -> list:
     """The five MSMs on one device. A worker thread runs h_digits() and
     builds and uploads the h schedules while this thread builds (unless
     given) the z schedules and dispatches the a/b1/l and b2 MSMs (one
@@ -197,25 +218,28 @@ def _local_msms(q, digits_z, segs_z, h_digits, dev, t0) -> list:
     Handles in the order a, b1, h, b2, l."""
 
     def _h_work():
-        digits_h = h_digits()
-        segs_h = MSM.build_segment_schedules(digits_h)
-        MSM.upload_segment_schedules(segs_h, dev)
-        return segs_h, digits_h
+        with span("h.stage"):
+            digits_h = h_digits()
+            with span("h.schedules"):
+                segs_h = MSM.build_segment_schedules(digits_h)
+            MSM.upload_segment_schedules(segs_h, dev)
+            return segs_h, digits_h
 
     with _cf.ThreadPoolExecutor(1) as ex:
-        h_fut = ex.submit(_h_work)
+        h_fut = ex.submit(carry(_h_work))
         if segs_z is None:
-            segs_z = MSM.build_segment_schedules(digits_z)
-            _trace("z segment schedules built", t0)
-        t_a, t_b1, t_l, t_b2 = (
-            MSM.msm_begin_scheds(q[k], segs_z,
-                                 MSM._inf_correction(digits_z, q[k][1]))
-            for k in ("a", "b1", "l", "b2"))
-        _trace("a/b1/l/b2 MSMs in flight (one shared schedule)", t0)
-        segs_h, digits_h = h_fut.result()
-    _trace("h downloaded + decoded + scheduled (worker thread)", t0)
-    t_h = MSM.msm_begin_scheds(q["h"], segs_h,
-                               MSM._inf_correction(digits_h, q["h"][1]))
+            with span("msm.z_schedules"):
+                segs_z = MSM.build_segment_schedules(digits_z)
+        with span("msm.dispatch"):
+            t_a, t_b1, t_l, t_b2 = (
+                MSM.msm_begin_scheds(q[k], segs_z,
+                                     MSM._inf_correction(digits_z, q[k][1]))
+                for k in ("a", "b1", "l", "b2"))
+        with span("prove.wait_h"):
+            segs_h, digits_h = h_fut.result()
+    with span("msm.dispatch"):
+        t_h = MSM.msm_begin_scheds(q["h"], segs_h,
+                                   MSM._inf_correction(digits_h, q["h"][1]))
     return [t_a, t_b1, t_h, t_b2, t_l]
 
 
@@ -273,20 +297,23 @@ def witness_map_stage_native(system, device="cuda") -> StagedWitnessMap:
     size = Domain.new(nc + ni).size
     # A gets the identity block over the instance assignment appended
     # (input-consistency rows), as matrix_vector_evals(input_rows=True)
-    rows = {
-        "A": np.concatenate([words32(system.matvec("A", mont=True)),
-                             L.encode_mont(system.instance_ints(), L.FR)],
-                            axis=1),
-        "B": words32(system.matvec("B", mont=True)),
-        "C": words32(system.matvec("C", mont=True)),
-    }
+    with span("wm.matvec"):
+        rows = {
+            "A": np.concatenate([words32(system.matvec("A", mont=True)),
+                                 L.encode_mont(system.instance_ints(), L.FR)],
+                                axis=1),
+            "B": words32(system.matvec("B", mont=True)),
+            "C": words32(system.matvec("C", mont=True)),
+        }
     out = []
-    for k in ("A", "B", "C"):
-        host = torch.zeros((L.NWORDS, size), dtype=torch.int32,
-                           pin_memory=dev.type == "cuda")
-        host[:, :rows[k].shape[1]] = torch.from_numpy(
-            np.ascontiguousarray(rows[k], dtype=np.uint32).view(np.int32))
-        out.append(host.to(dev, non_blocking=True))
+    pinned = dev.type == "cuda"
+    with span("wm.upload", bytes=3 * L.NWORDS * size * 4, pinned=pinned):
+        for k in ("A", "B", "C"):
+            host = torch.zeros((L.NWORDS, size), dtype=torch.int32,
+                               pin_memory=pinned)
+            host[:, :rows[k].shape[1]] = torch.from_numpy(
+                np.ascontiguousarray(rows[k], dtype=np.uint32).view(np.int32))
+            out.append(host.to(dev, non_blocking=True))
     return StagedWitnessMap(out, size)
 
 
@@ -318,31 +345,34 @@ def prove_synthesized(pk: ProvingKey, system, batch_id: int = 0,
     from ..r1cs.native_synth import from_mont_words
 
     dev, mesh = D.placement(device, mesh)
-    t0 = time.time()
-    if check:
-        bad = system.check()
-        if bad != -1:
-            raise ValueError(
-                f"constraint {bad} unsatisfied; witness invalid")
-    num_instance = system.num_instance
-    check_fits(pk, num_instance, system.num_vars, system.num_constraints)
+    with span("prove.synthesized"):
+        if check:
+            with span("prove.check"):
+                bad = system.check()
+            if bad != -1:
+                raise ValueError(
+                    f"constraint {bad} unsatisfied; witness invalid")
+        num_instance = system.num_instance
+        check_fits(pk, num_instance, system.num_vars, system.num_constraints)
 
-    rng = StdRng.seed_from_u64(batch_id)
-    r = rand_fp(rng, FR)
-    s = rand_fp(rng, FR)
-    pre = precomputed or {}
-    if "uploads" in pre:
-        staging.take_over(pre["uploads"], dev)
-    _trace("witness checked", t0)
-    h_dev, m = witness_map_dispatch_native(system, pre.get("wm"), dev)
-    h_handle = staging.download(h_dev)
-    _trace("witness map dispatched (NTT chain queued)", t0)
-    q = prepare_queries(pk, dev, mesh)
-    _trace("query pools prepared/cached", t0)
-    digits_z = (pre["digits_z"] if "digits_z" in pre
-                else MSM.scalar_digits(system.z))
-    return _msms_and_assembly(
-        pk, q, r, s, digits_z, pre.get("segs_z"),
-        lambda: MSM.scalar_digits(
-            from_mont_words(staging.fetch(h_handle))[:m - 1]),
-        dev, t0, mesh)
+        rng = StdRng.seed_from_u64(batch_id)
+        r = rand_fp(rng, FR)
+        s = rand_fp(rng, FR)
+        pre = precomputed or {}
+        if "uploads" in pre:
+            staging.take_over(pre["uploads"], dev)
+        with span("prove.witness_map"):
+            h_dev, m = witness_map_dispatch_native(system, pre.get("wm"), dev)
+            h_handle = staging.download(h_dev)
+        with span("prove.queries"):
+            q = prepare_queries(pk, dev, mesh)
+        if "digits_z" in pre:
+            digits_z = pre["digits_z"]
+        else:
+            with span("prove.z_digits"):
+                digits_z = MSM.scalar_digits(system.z)
+        return _msms_and_assembly(
+            pk, q, r, s, digits_z, pre.get("segs_z"),
+            functools.partial(_h_digits, h_handle,
+                              lambda w: from_mont_words(w)[:m - 1]),
+            dev, mesh)

@@ -18,15 +18,13 @@ query arrays come from the device fixed-base engine (ops/fixed_base.py, the
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from ..curves import g1 as G1, g2 as G2
 from ..device import resolve
 from ..fields.bn254 import R as FR
 from ..poly.domain import Domain
-from ..trace import trace
+from ..trace import span
 from .keys import ProvingKey, VerifyingKey
 from .qap import evaluate_qap_at
 from .stdrng import StdRng, rand_fp, rand_g1, rand_g2
@@ -73,12 +71,14 @@ def keygen(circuit, seed: int = 0, device="cuda") -> ProvingKey:
     from ..r1cs.system import ConstraintSystem
 
     dev = resolve(device)
-    cs = ConstraintSystem()
-    circuit.generate_constraints(cs)
-    A, B, C = cs.matrices()
-    num_instance = cs.num_instance
-    num_vars = num_instance + cs.num_witness
-    return _keygen_impl(A, B, C, num_instance, num_vars, seed, None, dev)
+    with span("keygen"):
+        with span("keygen.synthesize"):
+            cs = ConstraintSystem()
+            circuit.generate_constraints(cs)
+            A, B, C = cs.matrices()
+        num_instance = cs.num_instance
+        num_vars = num_instance + cs.num_witness
+        return _keygen_impl(A, B, C, num_instance, num_vars, seed, None, dev)
 
 
 def keygen_synthesized(system, seed: int = 0, device="cuda") -> ProvingKey:
@@ -86,8 +86,9 @@ def keygen_synthesized(system, seed: int = 0, device="cuda") -> ProvingKey:
     and the keygen scalar combines run in C, and the scalars stay (n, 4)
     u64 arrays end to end."""
     dev = resolve(device)
-    return _keygen_impl(None, None, None, system.num_instance,
-                        system.num_vars, seed, system, dev)
+    with span("keygen"):
+        return _keygen_impl(None, None, None, system.num_instance,
+                            system.num_vars, seed, system, dev)
 
 
 def _qap_at_native(system, t: int, domain):
@@ -111,61 +112,61 @@ def _keygen_impl(A, B, C, num_instance, num_vars, seed, system,
     # rand 0.8 StdRng stream, sampled in ark-groth16's exact order
     # (generator.rs: alpha, beta, gamma, delta, G1::rand, G2::rand, then
     # sample_element_outside_domain for t)
-    t0 = time.time()
-    rng = StdRng.seed_from_u64(seed)
-    alpha = rand_fp(rng, FR)
-    beta = rand_fp(rng, FR)
-    gamma = rand_fp(rng, FR)
-    delta = rand_fp(rng, FR)
-    g1_gen = rand_g1(rng)
-    g2_gen = rand_g2(rng)
+    with span("keygen.qap"):
+        rng = StdRng.seed_from_u64(seed)
+        alpha = rand_fp(rng, FR)
+        beta = rand_fp(rng, FR)
+        gamma = rand_fp(rng, FR)
+        delta = rand_fp(rng, FR)
+        g1_gen = rand_g1(rng)
+        g2_gen = rand_g2(rng)
 
-    num_constraints = system.num_constraints if system is not None else len(A)
-    domain = Domain.new(num_constraints + num_instance)
-    while True:
-        t = rand_fp(rng, FR)
-        if domain.evaluate_vanishing_polynomial(t) != 0:
-            break
+        num_constraints = (system.num_constraints if system is not None
+                           else len(A))
+        domain = Domain.new(num_constraints + num_instance)
+        while True:
+            t = rand_fp(rng, FR)
+            if domain.evaluate_vanishing_polynomial(t) != 0:
+                break
 
-    gamma_inv = pow(gamma, FR - 2, FR)
-    delta_inv = pow(delta, FR - 2, FR)
-    m = domain.size
-    ni = num_instance
+        gamma_inv = pow(gamma, FR - 2, FR)
+        delta_inv = pow(delta, FR - 2, FR)
+        m = domain.size
+        ni = num_instance
 
-    if system is not None:
-        from ..r1cs.native_synth import abc_combine, fr_ints, powers_scaled
+        if system is not None:
+            from ..r1cs.native_synth import (abc_combine, fr_ints,
+                                             powers_scaled)
 
-        a, b, c, zt = _qap_at_native(system, t, domain)
-        h_s = powers_scaled(t, zt * delta_inv % FR, m - 1)
-        l_s = abc_combine(a[ni:], b[ni:], c[ni:], beta, alpha, delta_inv)
-        abc_scalars = fr_ints(
-            abc_combine(a[:ni], b[:ni], c[:ni], beta, alpha, gamma_inv))
-        trace("QAP at t + scalar combines (native)", t0)
-    else:
-        a, b, c, zt, domain = evaluate_qap_at(
-            A, B, C, num_instance, num_vars, t)
-        h_s = []
-        tj = 1
-        for _ in range(m - 1):
-            h_s.append(tj * zt % FR * delta_inv % FR)
-            tj = tj * t % FR
-        l_s = [(beta * a[i] + alpha * b[i] + c[i]) % FR * delta_inv % FR
-               for i in range(num_instance, num_vars)]
-        abc_scalars = [(beta * a[i] + alpha * b[i] + c[i]) % FR * gamma_inv
-                       % FR for i in range(num_instance)]
-        trace("QAP at t + scalar combines (Python)", t0)
+            a, b, c, zt = _qap_at_native(system, t, domain)
+            h_s = powers_scaled(t, zt * delta_inv % FR, m - 1)
+            l_s = abc_combine(a[ni:], b[ni:], c[ni:], beta, alpha, delta_inv)
+            abc_scalars = fr_ints(
+                abc_combine(a[:ni], b[:ni], c[:ni], beta, alpha, gamma_inv))
+        else:
+            a, b, c, zt, domain = evaluate_qap_at(
+                A, B, C, num_instance, num_vars, t)
+            h_s = []
+            tj = 1
+            for _ in range(m - 1):
+                h_s.append(tj * zt % FR * delta_inv % FR)
+                tj = tj * t % FR
+            l_s = [(beta * a[i] + alpha * b[i] + c[i]) % FR * delta_inv % FR
+                   for i in range(num_instance, num_vars)]
+            abc_scalars = [(beta * a[i] + alpha * b[i] + c[i]) % FR
+                           * gamma_inv % FR for i in range(num_instance)]
 
-    fb1 = FixedBase(g1_gen, G1)
-    fb2 = FixedBase(g2_gen, G2)
-    trace("host windowed tables", t0)
+    with span("keygen.host_tables"):
+        fb1 = FixedBase(g1_gen, G1)
+        fb2 = FixedBase(g2_gen, G2)
 
     if num_vars + m >= DEVICE_MIN:
         from ..ops.fixed_base import (fixed_base_msm, prepare_table_g1,
                                       prepare_table_g2)
 
-        tg1 = prepare_table_g1(g1_gen, dev)
-        tg2 = prepare_table_g2(g2_gen, dev)
-        trace("fixed-base tables built + uploaded", t0)
+        with span("keygen.device_tables"):
+            tg1 = prepare_table_g1(g1_gen, dev)
+            tg2 = prepare_table_g2(g2_gen, dev)
 
         def msm1(scalars):
             return fixed_base_msm(tg1, scalars)
@@ -188,19 +189,21 @@ def _keygen_impl(A, B, C, num_instance, num_vars, seed, system,
     for name, fn, scalars in (("a", msm1, a), ("b1", msm1, b),
                               ("b2", msm2, b), ("h", msm1, h_s),
                               ("l", msm1, l_s)):
-        queries[name] = fn(scalars)
-        trace(f"{name} query ({len(scalars)} points)", t0)
-    vk = VerifyingKey(
-        alpha_g1=fb1.mul(alpha),
-        beta_g2=fb2.mul(beta),
-        gamma_g2=fb2.mul(gamma),
-        delta_g2=fb2.mul(delta),
-        gamma_abc_g1=[fb1.mul(s) if s else None for s in abc_scalars],
-    )
+        with span(f"keygen.query_{name}", points=len(scalars)):
+            queries[name] = fn(scalars)
+    with span("keygen.vk"):
+        vk = VerifyingKey(
+            alpha_g1=fb1.mul(alpha),
+            beta_g2=fb2.mul(beta),
+            gamma_g2=fb2.mul(gamma),
+            delta_g2=fb2.mul(delta),
+            gamma_abc_g1=[fb1.mul(s) if s else None for s in abc_scalars],
+        )
+        beta_g1, delta_g1 = fb1.mul(beta), fb1.mul(delta)
     return ProvingKey(
         vk=vk,
-        beta_g1=fb1.mul(beta),
-        delta_g1=fb1.mul(delta),
+        beta_g1=beta_g1,
+        delta_g1=delta_g1,
         a_query=queries["a"],
         b_g1_query=queries["b1"],
         b_g2_query=queries["b2"],

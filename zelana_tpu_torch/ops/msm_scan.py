@@ -39,6 +39,7 @@ by one host scalar multiply (_inf_correction).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +50,7 @@ from ..curves.point_array import PointArray
 from ..device import resolve
 from ..fields.bn254 import P as _P, R as _FR
 from ..fields import tower as tw
+from ..trace import span
 from . import curve_kernels as CK
 from . import limbs as L
 from . import sched_native
@@ -173,11 +175,13 @@ def build_schedule(digits: np.ndarray, lanes: int = LANES,
 
 
 def _upload(s: Schedule, device) -> dict:
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return {"pid": t(s.pid), "flag": t(s.flag), "pos2": t(s.pos2),
-            "flag2": t(s.flag2), "dense": t(s.dense_idx.reshape(-1))}
+    arrays = {"pid": s.pid, "flag": s.flag, "pos2": s.pos2,
+              "flag2": s.flag2, "dense": s.dense_idx.reshape(-1)}
+    to_card = torch.device(device).type == "cuda"
+    with (span("msm.upload", bytes=sum(a.nbytes for a in arrays.values()),
+               pinned=False) if to_card else contextlib.nullcontext()):
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for k, a in arrays.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -345,11 +349,12 @@ def _inf_correction(digits: np.ndarray, inf) -> int:
     the scan result is off by exactly corr * G."""
     if inf is None or not inf.any():
         return 0
-    sums = digits[:, inf].sum(axis=1, dtype=np.int64)
-    corr = 0
-    for w in range(digits.shape[0] - 1, -1, -1):
-        corr = (corr << SCAN_BITS) + int(sums[w])
-    return corr % _FR
+    with span("msm.inf_correction"):
+        sums = digits[:, inf].sum(axis=1, dtype=np.int64)
+        corr = 0
+        for w in range(digits.shape[0] - 1, -1, -1):
+            corr = (corr << SCAN_BITS) + int(sums[w])
+        return corr % _FR
 
 
 def _apply_corr(res, curve: str, corr: int):
@@ -399,10 +404,12 @@ def msm_begin_scheds(prepared, segs: list, corr: int = 0):
     upload_segment_schedules(segs, pool.device)
     multi = _MultiMsm()
     for seg in segs:
-        multi.pending.append(
-            _device_msm(pool[:, seg["lo"]:seg["hi"]], seg["dev"], curve))
+        with span("msm.launch"):
+            multi.pending.append(
+                _device_msm(pool[:, seg["lo"]:seg["hi"]], seg["dev"], curve))
         if len(multi.pending) >= MAX_INFLIGHT:
-            multi.done.append(L.to_numpy(multi.pending.pop(0)))
+            with span("msm.wait_device"):
+                multi.done.append(L.to_numpy(multi.pending.pop(0)))
     return (multi, curve, corr)
 
 
@@ -425,8 +432,10 @@ def _finish_multi(finals, curve: str):
 def msm_end_many(handles) -> list:
     out = []
     for multi, curve, corr in handles:
-        finals = multi.done + [L.to_numpy(p) for p in multi.pending]
-        out.append(_apply_corr(_finish_multi(finals, curve), curve, corr))
+        with span("msm.fetch_finals"):
+            finals = multi.done + [L.to_numpy(p) for p in multi.pending]
+        with span("msm.finish_host", segments=len(finals)):
+            out.append(_apply_corr(_finish_multi(finals, curve), curve, corr))
     return out
 
 

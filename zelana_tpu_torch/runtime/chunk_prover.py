@@ -26,7 +26,7 @@ from ..circuits.batch_mimc import BatchCircuitMiMC
 from ..device import resolve
 from ..groth16.keys import Proof, ProvingKey
 from ..parallel import distributed as D
-from ..trace import trace
+from ..trace import carry, span
 from .chunk_witness import chunk_accumulators
 from .coordinator import Chunk, ChunkProof
 
@@ -90,10 +90,8 @@ class Groth16ChunkProver:
         from ..r1cs.native_synth import synthesize_chunk
 
         dev = resolve(device)
-        t0 = time.time()
-        system = synthesize_chunk(cls.dummy_circuit(capacity, tree_depth))
-        trace(f"dummy chunk synthesized ({system.num_constraints} "
-              f"constraints)", t0)
+        with span("keygen.synthesize"):
+            system = synthesize_chunk(cls.dummy_circuit(capacity, tree_depth))
         return cls(keygen_synthesized(system, seed=seed, device=dev),
                    capacity, tree_depth, dev)
 
@@ -147,11 +145,14 @@ class Groth16ChunkProver:
         from ..r1cs.native_synth import synthesize_chunk
 
         start = time.time()
-        circuit = self.build_circuit(chunk, batch_id)
-        proof = prove_synthesized(self.pk, synthesize_chunk(circuit),
-                                  batch_id=batch_id, device=self.device,
-                                  mesh=self.mesh)
-        return self._chunk_proof(chunk, circuit, proof, batch_id, start)
+        with span("chunk.prove", request=f"{batch_id}/{chunk.index}"):
+            with span("chunk.build_circuit"):
+                circuit = self.build_circuit(chunk, batch_id)
+            with span("chunk.synthesize"):
+                system = synthesize_chunk(circuit)
+            proof = prove_synthesized(self.pk, system, batch_id=batch_id,
+                                      device=self.device, mesh=self.mesh)
+            return self._chunk_proof(chunk, circuit, proof, batch_id, start)
 
     def _synth_chunk(self, chunk: Chunk, batch_id: int):
         """Host stage of one chunk, run on a worker thread: circuit build,
@@ -165,26 +166,34 @@ class Groth16ChunkProver:
         from ..r1cs.native_synth import synthesize_chunk
 
         dev = self.device
-        circuit = self.build_circuit(chunk, batch_id)
-        system = synthesize_chunk(circuit)
-        bad = system.check()
-        if bad != -1:
-            raise ValueError(f"constraint {bad} unsatisfied; witness invalid")
-        digits_z = MSM.scalar_digits(system.z)
-        if self.mesh is None:
-            segs_z = MSM.build_segment_schedules(digits_z)
-        else:  # this rank's shard of the a, b1, l and b2 pools
-            from ..parallel.sharded import shard_schedules
+        with span("chunk.host_stage"):
+            with span("chunk.build_circuit"):
+                circuit = self.build_circuit(chunk, batch_id)
+            with span("chunk.synthesize"):
+                system = synthesize_chunk(circuit)
+            with span("chunk.check"):
+                bad = system.check()
+            if bad != -1:
+                raise ValueError(
+                    f"constraint {bad} unsatisfied; witness invalid")
+            with span("chunk.z_digits"):
+                digits_z = MSM.scalar_digits(system.z)
+            with span("chunk.z_schedules"):
+                if self.mesh is None:
+                    segs_z = MSM.build_segment_schedules(digits_z)
+                else:  # this rank's shard of the a, b1, l and b2 pools
+                    from ..parallel.sharded import shard_schedules
 
-            segs_z = shard_schedules(digits_z, digits_z.shape[1], self.mesh)
-        pre = {"digits_z": digits_z, "segs_z": segs_z}
-        with staging.side_stream(dev):
-            pre["wm"] = P.witness_map_stage_native(system, dev)
-            MSM.upload_segment_schedules(segs_z, dev)
-            pre["uploads"] = staging.hand_over(
-                pre["wm"].words + [t for seg in segs_z
-                                   for t in seg["dev"].values()], dev)
-        return circuit, system, pre
+                    segs_z = shard_schedules(digits_z, digits_z.shape[1],
+                                             self.mesh)
+            pre = {"digits_z": digits_z, "segs_z": segs_z}
+            with staging.side_stream(dev):
+                pre["wm"] = P.witness_map_stage_native(system, dev)
+                MSM.upload_segment_schedules(segs_z, dev)
+                pre["uploads"] = staging.hand_over(
+                    pre["wm"].words + [t for seg in segs_z
+                                       for t in seg["dev"].values()], dev)
+            return circuit, system, pre
 
     def prove_chunks(self, chunks: List[Chunk],
                      batch_id: int) -> List[ChunkProof]:
@@ -195,20 +204,27 @@ class Groth16ChunkProver:
         from ..groth16.prove import prove_synthesized
 
         out: List[ChunkProof] = []
-        with cf.ThreadPoolExecutor(1) as ex:
-            nxt = ex.submit(self._synth_chunk, chunks[0], batch_id)
+        with span("chunk.batch", request=str(batch_id)) as batch, \
+                cf.ThreadPoolExecutor(1) as ex:
+            def host_stage(chunk):
+                return ex.submit(carry(self._synth_chunk, batch,
+                                       f"{batch_id}/{chunk.index}"),
+                                 chunk, batch_id)
+
+            nxt = host_stage(chunks[0])
             for i, chunk in enumerate(chunks):
                 start = time.time()
-                circuit, system, pre = nxt.result()
-                if i + 1 < len(chunks):
-                    nxt = ex.submit(self._synth_chunk, chunks[i + 1],
-                                    batch_id)
-                # the worker ran the satisfaction check
-                proof = prove_synthesized(self.pk, system, batch_id=batch_id,
-                                          check=False, precomputed=pre,
-                                          device=self.device, mesh=self.mesh)
-                out.append(self._chunk_proof(chunk, circuit, proof, batch_id,
-                                             start))
+                with span("chunk.prove", request=f"{batch_id}/{chunk.index}"):
+                    with span("chunk.wait_host_stage"):
+                        circuit, system, pre = nxt.result()
+                    if i + 1 < len(chunks):
+                        nxt = host_stage(chunks[i + 1])
+                    # the worker ran the satisfaction check
+                    proof = prove_synthesized(
+                        self.pk, system, batch_id=batch_id, check=False,
+                        precomputed=pre, device=self.device, mesh=self.mesh)
+                    out.append(self._chunk_proof(chunk, circuit, proof,
+                                                 batch_id, start))
         return out
 
     def verify_chunk(self, cp: ChunkProof) -> bool:
