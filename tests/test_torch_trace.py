@@ -11,6 +11,9 @@ a chunk prove, on the CPU.
   tests/test_torch_sharded.py (prove_chunks of the dryrun chunk, byte-equal
   to testdata/chunk_101_d1_proof.json) and tests/test_torch_concurrent.py
   (the one-device MSMs and their h worker, on four threads).
+- The schedule builds' spans count their segments and the threads that
+  built them: one segment on its own thread, and with segments of 2^12
+  points several on the schedule pool, whose threads record no span.
 - The shared clock with the benchmark's windows, the ring's bound, spans
   of two threads at once.
 """
@@ -60,6 +63,10 @@ UNPIPELINED = {
     "h.stage", "h.fetch", "h.decode", "h.digits", "h.schedules", "msm.end",
     "msm.fetch_finals", "msm.finish_host", "prove.assembly"}
 HANDED = ("chunk.host_stage", "h.stage")  # handed to a worker thread
+# the schedule builds' spans, each counting its segments and the threads
+# that built them
+SCHEDULES = ("chunk.z_schedules", "msm.z_schedules", "h.schedules")
+POOLED_N = 1 << 12  # the dryrun chunk's h: 8 segments of it
 
 
 def dryrun_chunks(two: bool):
@@ -102,6 +109,23 @@ def stubbed(prover):
     finally:
         MSM._device_msm = real
     return batch, one
+
+
+@pytest.fixture(scope="module")
+def pooled(prover):
+    """prove_chunks' spans of one chunk with segments of POOLED_N points,
+    so that h and z build several segments on the schedule pool; the MSMs'
+    device program stubbed as in `stubbed`."""
+    real, chunk_n = MSM._device_msm, MSM.CHUNK_N
+    MSM._device_msm = lambda pool, d, curve: torch.zeros(
+        (CK.rows(curve), 8 * 32), dtype=torch.int32)
+    MSM.CHUNK_N = POOLED_N
+    try:
+        _, rows = recorded(
+            lambda: prover.prove_chunks(dryrun_chunks(False), BATCH + 2))
+    finally:
+        MSM._device_msm, MSM.CHUNK_N = real, chunk_n
+    return rows
 
 
 def by_request(rows) -> dict:
@@ -226,3 +250,42 @@ def test_spans_of_threads_at_once():
         assert len(mine) == 301
         assert {r.thread_name for r in mine} == {name}
         assert all(r.parent == outer for r in mine if r.name == "test.leaf")
+
+
+def schedule_counts(rows) -> dict:
+    """{span name: its counts} of the schedule builds among rows."""
+    return {r.name: r.counts for r in rows if r.name in SCHEDULES}
+
+
+def test_schedule_spans_count_one_segment(stubbed):
+    """The dryrun chunk's h and z fit one segment: every schedule build's
+    span counts one segment built on its own thread."""
+    rows, one = stubbed
+    for req, mine in by_request(rows + one).items():
+        if "/" in req:
+            got = schedule_counts(mine)
+            assert len(got) == 2, (req, got)
+            assert all(c == {"segments": 1, "workers": 1}
+                       for c in got.values()), (req, got)
+
+
+def test_schedule_spans_count_pool_workers(pooled):
+    """Segments of POOLED_N points: h.schedules and chunk.z_schedules count
+    every segment and the pool threads that built them, at most one a
+    usable core; the pool threads record no span, so the spans and their
+    tree are those of one-segment builds (and msm.wait_device, past
+    MSM.MAX_INFLIGHT segments)."""
+    check_tree(pooled)
+    mine = by_request(pooled)[f"{BATCH + 2}/0"]
+    assert {r.name for r in mine} == PIPELINED | {"msm.wait_device"}
+    (h_stage,) = [r for r in mine if r.name == "h.stage"]
+    (host,) = [r for r in mine if r.name == "chunk.host_stage"]
+    assert {r.thread for r in pooled} <= {threading.get_ident(),
+                                          h_stage.thread, host.thread}
+    got = schedule_counts(mine)
+    assert set(got) == {"h.schedules", "chunk.z_schedules"}
+    assert got["h.schedules"]["segments"] == 8
+    assert got["chunk.z_schedules"]["segments"] > 1
+    cores = len(os.sched_getaffinity(0))
+    for c in got.values():
+        assert 1 <= c["workers"] <= min(cores, c["segments"]), got

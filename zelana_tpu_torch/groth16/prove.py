@@ -172,8 +172,9 @@ def _sharded_msms(q, digits_z, segs_z, h_digits, mesh) -> list:
     from ..parallel import sharded as SH
 
     if segs_z is None:
-        with span("msm.z_schedules"):
+        with span("msm.z_schedules") as sp:
             segs_z = SH.shard_schedules(digits_z, q["a"].n, mesh)
+            sp.counts.update(MSM.schedule_counts(segs_z))
     with span("msm.dispatch"):
         t_a, t_b1, t_l, t_b2 = (
             SH.msm_begin_scheds_sharded(
@@ -220,16 +221,18 @@ def _local_msms(q, digits_z, segs_z, h_digits, dev) -> list:
     def _h_work():
         with span("h.stage"):
             digits_h = h_digits()
-            with span("h.schedules"):
+            with span("h.schedules") as sp:
                 segs_h = MSM.build_segment_schedules(digits_h)
+                sp.counts.update(MSM.schedule_counts(segs_h))
             MSM.upload_segment_schedules(segs_h, dev)
             return segs_h, digits_h
 
     with _cf.ThreadPoolExecutor(1) as ex:
         h_fut = ex.submit(carry(_h_work))
         if segs_z is None:
-            with span("msm.z_schedules"):
+            with span("msm.z_schedules") as sp:
                 segs_z = MSM.build_segment_schedules(digits_z)
+                sp.counts.update(MSM.schedule_counts(segs_z))
         with span("msm.dispatch"):
             t_a, t_b1, t_l, t_b2 = (
                 MSM.msm_begin_scheds(q[k], segs_z,

@@ -29,7 +29,9 @@ buffers depend on the stream shape; the MSM result does not.
 
 MSMs above CHUNK_N points run as segments of at most CHUNK_N (the schedule's
 point ids are 16-bit), with at most MAX_INFLIGHT segments queued before the
-oldest one is fetched; segment results add up on the host.
+oldest one is fetched; segment results add up on the host. The segments'
+schedules are built at once on a pool of host threads (the native scheduler
+releases the GIL), one thread a usable core.
 
 Identity points are stored in the pools as the generator, so the schedule
 depends on the scalars only and one schedule set serves every pool with the
@@ -39,7 +41,10 @@ by one host scalar multiply (_inf_correction).
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
+import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -372,23 +377,55 @@ class _MultiMsm:
         self.done = []  # fetched finals (uint32 numpy)
 
 
+_POOL = None  # the schedule threads, made at first use
+_POOL_LOCK = threading.Lock()
+
+
+def _schedule_pool() -> cf.ThreadPoolExecutor:
+    """The process's one pool of schedule threads, a thread a usable core:
+    calls from several threads at once (two proves, a prove's h worker
+    beside the next chunk's host stage) share it rather than each taking
+    every core. Its tasks build one segment each and submit nothing."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = cf.ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                          thread_name_prefix="msm-schedule")
+        return _POOL
+
+
 def build_segment_schedules(digits: np.ndarray, lanes: int = LANES,
                             chunk_n: int = None) -> list:
     """Host schedules of each chunk_n-point segment (CHUNK_N by default,
     at most 2^16) of one scalar vector. The list is shareable across MSMs
     with the same scalars: each entry's device copy is uploaded once and
-    cached in the entry."""
+    cached in the entry; "worker" is the ident of the thread that built it.
+    Several segments are built at once on the schedule pool, at most one a
+    usable core; one segment builds on the calling thread."""
     chunk_n = CHUNK_N if chunk_n is None else chunk_n
     if not 0 < chunk_n <= 1 << 16:
         raise ValueError(f"segments of {chunk_n} points: ids are 16-bit")
     n = digits.shape[1]
-    segs = []
-    for lo in range(0, max(n, 1), chunk_n):
-        hi = min(lo + chunk_n, n)
-        segs.append({"lo": lo, "hi": hi,
-                     "sched": build_schedule(digits[:, lo:hi], lanes=lanes),
-                     "dev": None})
-    return segs
+    bounds = [(lo, min(lo + chunk_n, n))
+              for lo in range(0, max(n, 1), chunk_n)]
+
+    def build(lo: int, hi: int) -> dict:
+        return {"lo": lo, "hi": hi,
+                "sched": build_schedule(digits[:, lo:hi], lanes=lanes),
+                "dev": None, "worker": threading.get_ident()}
+
+    if len(bounds) == 1:
+        return [build(*bounds[0])]
+    pool = _schedule_pool()
+    return [f.result() for f in [pool.submit(build, lo, hi)
+                                 for lo, hi in bounds]]
+
+
+def schedule_counts(segs: list) -> dict:
+    """The counts of a schedule build's span: the segments built and the
+    threads that built them."""
+    return {"segments": len(segs),
+            "workers": len({seg["worker"] for seg in segs})}
 
 
 def upload_segment_schedules(segs: list, device) -> None:

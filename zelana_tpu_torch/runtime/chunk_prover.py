@@ -178,7 +178,7 @@ class Groth16ChunkProver:
                     f"constraint {bad} unsatisfied; witness invalid")
             with span("chunk.z_digits"):
                 digits_z = MSM.scalar_digits(system.z)
-            with span("chunk.z_schedules"):
+            with span("chunk.z_schedules") as sp:
                 if self.mesh is None:
                     segs_z = MSM.build_segment_schedules(digits_z)
                 else:  # this rank's shard of the a, b1, l and b2 pools
@@ -186,6 +186,7 @@ class Groth16ChunkProver:
 
                     segs_z = shard_schedules(digits_z, digits_z.shape[1],
                                              self.mesh)
+                sp.counts.update(MSM.schedule_counts(segs_z))
             pre = {"digits_z": digits_z, "segs_z": segs_z}
             with staging.side_stream(dev):
                 pre["wm"] = P.witness_map_stage_native(system, dev)
