@@ -12,6 +12,7 @@ JAX client to the port's server.
 
 import dataclasses
 import os
+import threading
 import time
 from types import SimpleNamespace
 
@@ -46,12 +47,17 @@ PORT = SimpleNamespace(c=TC, kp=TKP, z=TZ, api=TAPI, b=TB, p=TP, sp=TSP,
 
 class StubProver:
     """MockProver's proof with no sleep, as a BatchProof of the package
-    given."""
+    given. A prove waits while `gate` is clear: the session holds the
+    prove job's batch until its status stream has read `running`, so the
+    stream reads the same states on every run."""
 
     def __init__(self, sp):
         self.sp = sp
+        self.gate = threading.Event()
+        self.gate.set()
 
     def prove(self, inputs, witness):
+        assert self.gate.wait(timeout=20), "the gate was never opened"
         proof = HashProveLeg().prove(inputs, witness)
         return self.sp.BatchProof(inputs, proof.proof_bytes, 0)
 
@@ -81,10 +87,11 @@ def client_session(pkg) -> list:
     signature, a withdrawal, the fast-withdraw quote, a shielded note and
     the scan, the prove-job API with its SSE stream, the pollers. Returns
     every answer, job ids taken out."""
+    prover = StubProver(pkg.sp)
     orch = pkg.p.PipelineOrchestrator(
         config=pkg.p.PipelineConfig(
             batch=pkg.b.BatchConfig(max_age_secs=3600)),
-        prover=StubProver(pkg.sp), dev_mode=False)
+        prover=prover, dev_mode=False)
     service = pkg.p.PipelineService(orch).start()
     server, port = pkg.api.start_api(orch)
     url = f"http://127.0.0.1:{port}"
@@ -141,8 +148,13 @@ def client_session(pkg) -> list:
                 api.get_shielded_root().hex(),
                 refused(lambda: sorted(api.get_committee()))]
         alice.dev_deposit_to(bob_kp.pubkey, 50, l1_seq=7)
+        prover.gate.clear()  # the job's batch waits for the stream
         job = api.prove_batch()
-        out.append(list(api.stream_status(job, timeout=20)))
+        states = []
+        for status in api.stream_status(job, timeout=20):
+            states.append(status)
+            prover.gate.set()
+        out.append(states)
         proof = api.wait_for_proof(job, timeout=20)
         proof.pop("job_id", None)
         out += [proof, api.prove_status(job),
@@ -163,6 +175,7 @@ def test_client_answers_match_jax():
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, i
     assert got[0] is True and got[5]["accepted"] and got[9] == 75
+    assert got[29] == ["running", "done"]  # the prove job's status stream
     assert got[8] == ("ApiError", 400, "invalid signature")
 
 

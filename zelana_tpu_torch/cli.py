@@ -10,6 +10,7 @@ binaries), over the port's modules.
     python -m zelana_tpu_torch.cli prove       # prove a demo batch end to end
     python -m zelana_tpu_torch.cli verify      # verify a proof file
     python -m zelana_tpu_torch.cli worker      # chunk-proving worker service
+    python -m zelana_tpu_torch.cli coordinator # prover coordinator over workers
     python -m zelana_tpu_torch.cli node        # blind MPC prover node
     python -m zelana_tpu_torch.cli explorer    # live store web explorer
 
@@ -202,21 +203,77 @@ def cmd_verify(args):
 
 
 def cmd_worker(args):
-    """Chunk-proving worker (forge prover-worker main.rs): keygen the
-    fixed-capacity chunk circuit once on `--device`, then serve /prove."""
+    """Chunk-proving worker (forge prover-worker main.rs): prove the
+    fixed-capacity chunk circuit on `--device` with the network's key file
+    `--pk` (ProvingKey.save_npz), or with a key made here by keygen when
+    none is given, then serve /prove. It serves until SIGINT or until its
+    parent process exits."""
+    import os
+
+    if args.pk and not os.path.isfile(args.pk):
+        raise SystemExit(f"worker: no key file {args.pk}")
+    import torch
+
+    from .device import resolve
+    from .groth16.keys import ProvingKey
     from .runtime.chunk_prover import Groth16ChunkProver
     from .runtime.worker import start_worker
 
+    parent = os.getppid()
     cap = tuple(int(x) for x in args.capacity.split("/"))
-    print(f"keygen for capacity {cap}, depth {args.depth}...")
-    prover = Groth16ChunkProver.setup(cap, args.depth, device=args.device)
+    dev = resolve(args.device)
+    if dev.type == "cuda":  # threads of the process start on this card
+        torch.cuda.set_device(dev)
+    if args.pk:
+        print(f"key {args.pk} for capacity {cap}, depth {args.depth} on "
+              f"{dev}")
+        prover = Groth16ChunkProver(ProvingKey.load_npz(args.pk), cap,
+                                    args.depth, device=dev)
+    else:
+        print(f"keygen for capacity {cap}, depth {args.depth}...")
+        prover = Groth16ChunkProver.setup(cap, args.depth, device=dev)
     server, port = start_worker(prover, port=args.port)
     print(f"chunk worker: http://127.0.0.1:{port}")
+    _serve_while(server, parent)
+
+
+def _serve_while(server, parent: int) -> None:
+    """Serve until SIGINT or until process `parent` is no longer this
+    process's parent, then shut the server down."""
+    import os
+
     try:
-        while True:
-            time.sleep(1)
+        while os.getppid() == parent:
+            time.sleep(0.5)
     except KeyboardInterrupt:
-        server.shutdown()
+        pass
+    server.shutdown()
+
+
+def cmd_coordinator(args):
+    """Prover coordinator alone (forge prover-coordinator main.rs): the
+    /v2/batch routes over a Dispatcher that slices each job into chunks and
+    fans them over the chunk workers at `--workers` (or the WORKERS env),
+    comma-separated URLs, by HTTP, with no pipeline behind them. It serves
+    until SIGINT or until its parent process exits."""
+    import os
+
+    urls = [u for u in (args.workers or os.environ.get("WORKERS", ""))
+            .split(",") if u]
+    if not urls:
+        raise SystemExit("coordinator: no workers (--workers or WORKERS)")
+    from .runtime.coordinator import Dispatcher
+    from .runtime.worker import http_chunk_prover
+    from .sequencer.api import start_coordinator
+
+    parent = os.getppid()
+    server, port = start_coordinator(
+        Dispatcher(http_chunk_prover(urls), max_workers=len(urls)),
+        port=args.port,
+        chunk_capacity=tuple(int(x) for x in args.capacity.split("/")),
+        chunk_depth=args.depth)
+    print(f"coordinator over {len(urls)} workers: http://127.0.0.1:{port}")
+    _serve_while(server, parent)
 
 
 def cmd_node(args):
@@ -580,7 +637,21 @@ def main(argv=None):
                    help="transfers/withdrawals/shielded per chunk")
     p.add_argument("--depth", type=int, default=32)
     p.add_argument("--port", type=int, default=0)
+    p.add_argument("--pk", default=None,
+                   help="proving key file (ProvingKey.save_npz); by "
+                   "default a keygen on --device")
     p.set_defaults(fn=cmd_worker)
+
+    p = sub.add_parser("coordinator", help="prover coordinator over chunk "
+                       "workers")
+    p.add_argument("--workers", default=None,
+                   help="the workers' URLs, comma-separated (default: the "
+                   "WORKERS env)")
+    p.add_argument("--capacity", default="8/4/4",
+                   help="transfers/withdrawals/shielded per chunk")
+    p.add_argument("--depth", type=int, default=32)
+    p.add_argument("--port", type=int, default=0)
+    p.set_defaults(fn=cmd_coordinator)
 
     p = sub.add_parser("node", help="blind MPC prover node")
     p.add_argument("--node-id", type=int, required=True)

@@ -157,9 +157,12 @@ def check(tensors, shapes, what: str) -> torch.device:
 
 
 def launch(name: str, fn: str, *args, device: torch.device) -> None:
-    """Call launcher `fn` of library `name` on `device`'s current stream;
-    raise on a non-zero cudaGetLastError()."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib(name), fn)(*args, stream)
+    """Call launcher `fn` of library `name` on `device`'s current stream,
+    with `device` the calling thread's current device (a launcher sets its
+    kernels' attributes on the current device, and a thread starts on card
+    0); raise on a non-zero cudaGetLastError()."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib(name), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")

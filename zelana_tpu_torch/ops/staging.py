@@ -47,7 +47,7 @@ def hand_over(tensors, device: torch.device):
     if device.type != "cuda":
         return list(tensors), None
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(device))
     return list(tensors), done
 
 
@@ -69,7 +69,7 @@ def download(t: torch.Tensor):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(t.device))
     return host, done
 
 

@@ -9,7 +9,9 @@ workers in parallel, collect the proofs, and expose a job API
 Within one host, "workers" are thread-pool provers sharing the card (or a
 batch prover that pipelines host synthesis under device work); across
 hosts, the same Dispatcher drives HTTP workers exactly like the reference.
-The job/status/proof API follows core_api.rs.
+The job/status/proof API follows core_api.rs. A job records the span
+`coord.job` (request: the batch id; `chunks`) on its thread, the parent of
+the spans its chunk provers record on the pool's threads.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..circuits.batch_mimc import (
     WithdrawalSlot,
 )
 from ..hashes import mimc
+from ..trace import carry, span
 
 
 @dataclass
@@ -232,14 +235,15 @@ class Dispatcher:
                     return
                 job.status = "running"
             try:
-                if self.batch_prover is not None:
-                    proofs = list(self.batch_prover(chunks, batch_id))
-                else:
-                    futures = [
-                        self.pool.submit(self.chunk_prover, chunk, batch_id)
-                        for chunk in chunks
-                    ]
-                    proofs = [f.result() for f in futures]
+                with span("coord.job", request=str(batch_id),
+                          chunks=len(chunks)) as job_span:
+                    if self.batch_prover is not None:
+                        proofs = list(self.batch_prover(chunks, batch_id))
+                    else:
+                        prove = carry(self.chunk_prover, job_span)
+                        futures = [self.pool.submit(prove, chunk, batch_id)
+                                   for chunk in chunks]
+                        proofs = [f.result() for f in futures]
                 proofs.sort(key=lambda p: p.chunk_index)
                 with self._lock:
                     if job.status != "cancelled":

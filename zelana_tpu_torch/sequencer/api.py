@@ -7,6 +7,13 @@ and operator pause/resume, plus the prover-coordinator-shaped
 /v2/batch/prove job API (forge core_api.rs:374-380) so external sequencers
 can drive this framework as a drop-in proving service.
 
+`start_coordinator` serves the /v2/batch routes alone, with a Dispatcher
+and no pipeline behind them, as forge's prover-coordinator runs: the other
+routes answer 404. A coordinator-shaped job records `coord.build_chunks`
+(request: the batch id), the witness build with its SMT paths. `GET /spans`
+gives the process's span ring (trace.py; each record as a dict), as a chunk
+worker's does.
+
 Implementation: stdlib ThreadingHTTPServer + JSON; no external web
 framework required.
 """
@@ -20,6 +27,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import urlparse
 
+from ..trace import span, spans
 from .pipeline import PipelineOrchestrator, tx_hash
 from .transactions import Deposit, Shielded, Transfer, Withdraw
 
@@ -38,9 +46,15 @@ def _unhex(s: str, n: int = 32) -> bytes:
     return b
 
 
+def _coordinator_route(path: str) -> bool:
+    """The routes a coordinator with no pipeline serves."""
+    return path in ("/health", "/spans") or path.startswith("/v2/batch/")
+
+
 class ApiState:
-    def __init__(self, orchestrator: PipelineOrchestrator, dispatcher=None,
-                 chunk_capacity=(8, 4, 4), chunk_depth: int = 32):
+    def __init__(self, orchestrator: Optional[PipelineOrchestrator],
+                 dispatcher=None, chunk_capacity=(8, 4, 4),
+                 chunk_depth: int = 32):
         self.orch = orchestrator
         self.prove_jobs: Dict[str, dict] = {}
         # distributed chunk-proving plane (runtime/coordinator.Dispatcher
@@ -104,9 +118,14 @@ def create_handler(state: ApiState):
         def do_GET(self):
             path = urlparse(self.path).path
             parts = [p for p in path.split("/") if p]
+            if orch is None and not _coordinator_route(path):
+                return self._json(404, {"error": "not found"})
             try:
                 if path == "/health":
                     return self._json(200, {"status": "ok"})
+                if path == "/spans":
+                    return self._json(200, {
+                        "spans": [r._asdict() for r in spans()]})
                 if path == "/status/stats":
                     s = orch.stats
                     b = orch.batches.stats
@@ -190,6 +209,8 @@ def create_handler(state: ApiState):
 
         def do_POST(self):
             path = urlparse(self.path).path
+            if orch is None and not _coordinator_route(path):
+                return self._json(404, {"error": "not found"})
             try:
                 body = self._body()
                 if path == "/transfer":
@@ -409,23 +430,25 @@ def create_handler(state: ApiState):
                     from ..runtime.chunk_witness import ChunkWitnessBuilder
                     from ..runtime.coordinator import Dispatcher
 
-                    builder = ChunkWitnessBuilder(state.chunk_depth)
-                    for acct in body.get("accounts", []):
-                        builder.fund(int(acct["pk"]), int(acct["balance"]),
-                                     int(acct.get("nonce", 0)))
-                    chunks = Dispatcher.build_chunks_with_witness(
-                        builder,
-                        [tuple(int(x) for x in t)
-                         for t in body.get("transfers", [])],
-                        [tuple(int(x) for x in w)
-                         for w in body.get("withdrawals", [])],
-                        [int(c) for c in body.get("shielded_commitments",
-                                                  [])],
-                        capacity=state.chunk_capacity,
-                        pre_shielded_root=int(
-                            body.get("pre_shielded_root", 0)),
-                    )
                     batch_id = int(body.get("batch_id", 1))
+                    with span("coord.build_chunks", request=str(batch_id)):
+                        builder = ChunkWitnessBuilder(state.chunk_depth)
+                        for acct in body.get("accounts", []):
+                            builder.fund(int(acct["pk"]),
+                                         int(acct["balance"]),
+                                         int(acct.get("nonce", 0)))
+                        chunks = Dispatcher.build_chunks_with_witness(
+                            builder,
+                            [tuple(int(x) for x in t)
+                             for t in body.get("transfers", [])],
+                            [tuple(int(x) for x in w)
+                             for w in body.get("withdrawals", [])],
+                            [int(c) for c in body.get(
+                                "shielded_commitments", [])],
+                            capacity=state.chunk_capacity,
+                            pre_shielded_root=int(
+                                body.get("pre_shielded_root", 0)),
+                        )
                     job_id = state.dispatcher.submit_job(chunks, batch_id)
                     state.prove_jobs[job_id] = {"status": "running",
                                                 "result": None}
@@ -473,6 +496,10 @@ def create_handler(state: ApiState):
 
                     threading.Thread(target=watch, daemon=True).start()
                     return self._json(200, {"job_id": job_id})
+                if path == "/v2/batch/prove" and orch is None:
+                    return self._json(400, {
+                        "error": "a coordinator with no pipeline proves "
+                                 "coordinator-shaped requests only"})
                 if path == "/v2/batch/prove":
                     job_id = uuid.uuid4().hex[:16]
                     state.prove_jobs[job_id] = {"status": "running",
@@ -533,3 +560,13 @@ def start_api(orchestrator: PipelineOrchestrator, port: int = 0,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     return server, server.server_address[1]
+
+
+def start_coordinator(dispatcher, port: int = 0, chunk_capacity=(8, 4, 4),
+                      chunk_depth: int = 32):
+    """The prover-coordinator alone (forge crates/prover-coordinator): the
+    /v2/batch routes over `dispatcher` (a runtime.coordinator.Dispatcher,
+    e.g. over runtime.worker.http_chunk_prover's workers) and /health, with
+    no pipeline behind them. Returns (server, actual_port)."""
+    return start_api(None, port, dispatcher=dispatcher,
+                     chunk_capacity=chunk_capacity, chunk_depth=chunk_depth)

@@ -12,7 +12,10 @@ the block may add to).
 
 Records go into a bounded ring of RING records, oldest dropped first;
 ``spans()`` returns a snapshot, in the order the spans ended. A full
-snapshot may have lost records older than its first.
+snapshot may have lost records older than its first. ``time.perf_counter()``
+is the host's CLOCK_MONOTONIC on Linux, one clock for every process of the
+host, so the records of a chunk worker's process (runtime/worker.py,
+``GET /spans``) line up with the coordinator's.
 Recording is always on: a span costs a few microseconds, and a chunk prove
 records about 280.
 """
@@ -69,6 +72,17 @@ class span:
         stack.append((self.id, self.request))
         self.start = time.perf_counter()
         return self
+
+    def tag(self, request: str) -> None:
+        """Give the open span its request id, and the spans opened under it
+        from now on: for a request whose id is known only once its body is
+        read."""
+        self.request = request
+        stack = _stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i][0] == self.id:
+                stack[i] = (self.id, request)
+                break
 
     def __exit__(self, *exc) -> None:
         end = time.perf_counter()
